@@ -1,0 +1,62 @@
+"""The device programs the paged serving backend runs, counterpart of the
+paged part of ``repro/serve/programs.py``.
+
+The JAX package jits each program once with one fixed signature and
+donates the cache. Here they are plain eager functions that update the
+per-layer pools in place; CUDA graphs of them are a later change. Every
+program runs ``lm_apply`` in a serving mode.
+"""
+from __future__ import annotations
+
+from ..layers.attention import copy_kv_blocks, reset_block_pos
+from ..models import lm_apply
+
+
+def make_prefill_chunk_paged(cfg):
+    """Chunked prefill through a block table: (params, cache, logits_buf,
+    slot, table(1,nb), tokens(1,C), positions(1,C)) -> logits_buf, with
+    row ``slot`` of the buffer set to the chunk's last-position logits.
+    Attention writes scatter into the slot's table blocks."""
+
+    def prefill_chunk(params, cache, buf, slot, table, tokens, positions):
+        logits, _, _ = lm_apply(
+            params, cfg, tokens, positions=positions, cache=cache,
+            mode="decode", last_only=True, block_tables=table,
+        )
+        buf[slot] = logits[0, -1].to(buf.dtype)
+        return buf
+
+    return prefill_chunk
+
+
+def make_decode_step_paged(cfg, use_kernel: bool = False):
+    """(params, tokens(B,1), pos(B,), tables(B,nb), cache) ->
+    logits(B,1,V). Rows with pos<0 are inactive; their (all-null) table
+    rows contribute only masked-out keys. ``use_kernel`` routes attention
+    through the paged decode-attention kernel, which reads the pool in
+    place; the gather path is its oracle."""
+
+    def decode(params, tokens, pos, tables, cache):
+        logits, _, _ = lm_apply(
+            params, cfg, tokens, positions=pos[:, None], cache=cache,
+            mode="decode", block_tables=tables, paged_kernel=use_kernel,
+        )
+        return logits
+
+    return decode
+
+
+def clear_blocks_program(cache, blocks):
+    """Invalidate physical blocks (pos -> -1) in every attention layer.
+    Freed blocks are cleared at their next allocation."""
+    for layer in cache:
+        reset_block_pos(layer["attn"], blocks)
+    return cache
+
+
+def copy_blocks_program(cache, src, dst):
+    """Copy physical blocks src[i] -> dst[i] in every attention layer
+    (copy-on-write fork)."""
+    for layer in cache:
+        copy_kv_blocks(layer["attn"], src, dst)
+    return cache
