@@ -144,7 +144,7 @@ def paged_bound_ms(q, k, tables, qpos, block_size):
               + keys * (2 * G * D * el + 4)         # K, V, pos of live keys
               + blocks * 4 + B * 4                  # live table entries, q_pos
               + B * H * D * q.element_size())       # output
-    flops = keys * H // G * G * 4 * D               # q.k and p.v per head
+    flops = keys * H * 4 * D                        # q.k and p.v per head
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
             else "operations")
@@ -328,13 +328,47 @@ def run_engine(torch, eng, prompts, max_new):
     return reqs, first, wall, decode_s
 
 
+def profile_ticks(torch, eng, n):
+    """Trace ``n`` engine ticks with torch.profiler; returns the window's
+    wall seconds and (kernel name, device us, launches) rows, largest
+    first. Kernels run on one stream, so their summed time over the wall
+    time is the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us, cnt = per.get(ev.name, (0.0, 0))
+            per[ev.name] = (us + ev.time_range.elapsed_us(), cnt + 1)
+    rows = sorted(((k, us, c) for k, (us, c) in per.items()),
+                  key=lambda r: -r[1])
+    return wall, rows
+
+
+def kernel_kind(name):
+    if "paged_decode_kernel" in name:
+        return "K7 paged decode attention"
+    if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "gemv")):
+        return "matmul"
+    return "other"
+
+
 def phase_serve(torch, card):
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_decode_attend
     from repro_torch.models import lm_init
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import Request, ServeEngine
 
     cfg = get_config("qwen2-0.5b")
     t0 = time.perf_counter()
@@ -387,6 +421,30 @@ def phase_serve(torch, card):
         f" ms), peak cache bytes {eng.peak_cache_bytes()} "
         f"(pool {eng.backend.bytes_per_block() * eng.backend.num_blocks}), "
         f"peak device memory {peak_alloc / 2**30:.2f} GiB")
+
+    # Where the time goes: trace 10 ticks in the middle of the same trace
+    # (prefill chunk + decode step each) on a fresh kernel engine.
+    prof_eng = ServeEngine(cfg, params, **geo)
+    for p in prompts:
+        prof_eng.submit(Request(prompt=list(p), max_new_tokens=max_new))
+    for _ in range(60):
+        prof_eng.step()
+    pwall, prows = profile_ticks(torch, prof_eng, 10)
+    busy = sum(us for _, us, _ in prows) / 1e6
+    log(f"[profile] {card}: 10 ticks (ticks 61-70 of the trace) in "
+        f"{pwall * 1e3:.1f} ms wall under the profiler; device busy "
+        f"{busy * 1e3:.1f} ms = {busy / pwall:.3f} of wall")
+    kinds = {}
+    for name, us, cnt in prows:
+        k = kernel_kind(name)
+        kinds[k] = (kinds.get(k, (0.0, 0))[0] + us,
+                    kinds.get(k, (0.0, 0))[1] + cnt)
+    for k, (us, cnt) in sorted(kinds.items(), key=lambda r: -r[1][0]):
+        log(f"[profile]   {k}: {us / 1e3:.2f} ms in {cnt} launches "
+            f"({us / 1e6 / pwall:.3f} of wall)")
+    for name, us, cnt in prows[:8]:
+        log(f"[profile]   top: {us / 1e3:.2f} ms x{cnt} {name[:90]}")
+    del prof_eng
 
     oracle = ServeEngine(cfg, params, use_kernel=False, **geo)
     oreqs, ofirst, owall, odecode_s = run_engine(torch, oracle, prompts,

@@ -24,17 +24,20 @@
 // (CUDA graphs, split-KV), as is TMA.
 //
 // Design:
-//   * One CTA per (KV group, row): grid (G, B), 128 threads. The CTA reads
+//   * One CTA per (KV group, row): grid (G, B), 256 threads. The CTA reads
 //     its table row itself (the TPU kernel prefetched tables as scalars)
 //     and loops over the row's tiles inside the CTA (the TPU kernel ran a
 //     sequential (b, kv_tile) grid with scratch carried across steps).
 //   * GQA is native: the K and V rows of a tile are read once for all
 //     `rep` query heads of the group.
-//   * Up to 128 keys (several tiles) are staged in shared memory at a time
-//     and all scores of the stage are computed in parallel; the softmax
-//     update then folds the stage tile by tile in logical order, so the
-//     arithmetic is the per-tile recurrence of the TPU kernel whatever the
-//     staging width.
+//   * Up to 128 keys (several tiles) are staged in shared memory at a time.
+//     The stage's table entries are read first, then K and V arrive as
+//     16-byte vector loads, several in flight per thread, so the loads
+//     overlap instead of each waiting on its own table lookup. All scores
+//     of the stage are computed in parallel; the softmax update then folds
+//     the stage tile by tile in logical order, one warp per query head, so
+//     the arithmetic is the per-tile recurrence of the TPU kernel whatever
+//     the staging width.
 //   * A row's whole reduction stays in one CTA in a fixed order (no atomics,
 //     no split across CTAs): row i of a batched launch equals a batch-1
 //     launch bitwise (the per-row invariant of src/repro/kernels/ops.py).
@@ -45,14 +48,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStageKeys = 128;
 constexpr float kNeg = -1e30f;  // running-max start, as the TPU kernel's _NEG
 constexpr size_t kMaxSmem = 220 * 1024;
+constexpr int kLoadsInFlight = 4;  // 16-byte loads issued per thread at once
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -98,7 +103,59 @@ __host__ __device__ inline size_t smem_floats(int rep, int Dk, int Dv,
          + (size_t)rep * stage_keys   // scores, then probabilities
          + (size_t)rep * Dv           // accumulators
          + 2 * (size_t)rep            // running max, denom
-         + (size_t)stage_keys;        // key positions (int)
+         + (size_t)stage_keys         // key positions (int)
+         + (size_t)stage_keys;        // pool row of each staged tile (int)
+}
+
+// Unpack a 16-byte vector of T into floats.
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& raw, float* dst) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < (int)(16 / sizeof(T)); ++i) dst[i] = to_f32(e[i]);
+}
+
+// Stage `nkeys` rows of width D of one KV group into shared memory as
+// f32 (row stride `ld`). Key j lives at pool row row0[j / bkv] + j % bkv.
+// With `vec`, each thread keeps kLoadsInFlight 16-byte loads in flight.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* pool, int G, int g, int D,
+                                           const int* row0, int bkv,
+                                           int nkeys, float* dst, int ld,
+                                           bool vec, int tid) {
+  const size_t row_elems = (size_t)G * D;
+  if (vec) {
+    constexpr int kVec = 16 / sizeof(T);
+    const int per_key = D / kVec;
+    const int n = nkeys * per_key;
+    for (int base = tid; base < n; base += kThreads * kLoadsInFlight) {
+      uint4 r[kLoadsInFlight];
+#pragma unroll
+      for (int u = 0; u < kLoadsInFlight; ++u) {
+        const int i = base + u * kThreads;
+        if (i < n) {
+          const int j = i / per_key, c = i - j * per_key;
+          const size_t row = (size_t)row0[j / bkv] + j % bkv;
+          r[u] = *reinterpret_cast<const uint4*>(
+              pool + row * row_elems + (size_t)g * D + (size_t)c * kVec);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadsInFlight; ++u) {
+        const int i = base + u * kThreads;
+        if (i < n) {
+          const int j = i / per_key, c = i - j * per_key;
+          unpack<T>(r[u], dst + j * ld + c * kVec);
+        }
+      }
+    }
+  } else {
+    for (int i = tid; i < nkeys * D; i += kThreads) {
+      const int j = i / D, d = i - j * D;
+      const size_t row = (size_t)row0[j / bkv] + j % bkv;
+      dst[j * ld + d] = to_f32(pool[row * row_elems + (size_t)g * D + d]);
+    }
+  }
 }
 
 template <typename TQ, typename TKV>
@@ -119,6 +176,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
   float* m_s = acc_s + rep * Dv;
   float* den_s = m_s + rep;
   int* pos_s = reinterpret_cast<int*>(den_s + rep);
+  int* row0_s = pos_s + stage_keys;
 
   const int qp = a.q_pos[b];
   TQ* out = static_cast<TQ*>(a.out) + ((size_t)b * a.H + (size_t)g * rep) * Dv;
@@ -142,31 +200,28 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
   const int* table = a.tables + (size_t)b * a.nb;
   const TKV* kp = static_cast<const TKV*>(a.k);
   const TKV* vp = static_cast<const TKV*>(a.v);
-  const size_t krow = (size_t)a.G * Dk, vrow = (size_t)a.G * Dv;
+  // 16-byte vector loads need D to be a multiple of the vector width and
+  // 16-byte aligned pools (row starts are then aligned too).
+  constexpr int kVec = 16 / sizeof(TKV);
+  const bool vec = Dk % kVec == 0 && Dv % kVec == 0 &&
+                   reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(vp) % 16 == 0;
 
   for (int t0 = 0; t0 < n_tiles; t0 += a.stage_tiles) {
     const int nt = min(a.stage_tiles, n_tiles - t0);
     const int nkeys = nt * bkv;
     __syncthreads();  // the previous stage is fully consumed
-    // Stage key j: tile t0 + j / bkv, row j % bkv of that tile.
-    for (int i = tid; i < nkeys * Dk; i += kThreads) {
-      const int j = i / Dk, d = i - j * Dk;
-      const int tile = t0 + j / bkv;
-      const size_t row = (size_t)table[tile / a.sub] * a.block_size
-                         + (tile % a.sub) * bkv + j % bkv;
-      k_s[j * ks + d] = to_f32(kp[row * krow + (size_t)g * Dk + d]);
+    // Pool row of each tile of the stage; key j of the stage is row
+    // j % bkv of tile t0 + j / bkv.
+    for (int tt = tid; tt < nt; tt += kThreads) {
+      const int tile = t0 + tt;
+      row0_s[tt] = table[tile / a.sub] * a.block_size + (tile % a.sub) * bkv;
     }
-    for (int i = tid; i < nkeys * Dv; i += kThreads) {
-      const int j = i / Dv, d = i - j * Dv;
-      const int tile = t0 + j / bkv;
-      const size_t row = (size_t)table[tile / a.sub] * a.block_size
-                         + (tile % a.sub) * bkv + j % bkv;
-      v_s[j * Dv + d] = to_f32(vp[row * vrow + (size_t)g * Dv + d]);
-    }
+    __syncthreads();
+    stage_rows<TKV>(kp, a.G, g, Dk, row0_s, bkv, nkeys, k_s, ks, vec, tid);
+    stage_rows<TKV>(vp, a.G, g, Dv, row0_s, bkv, nkeys, v_s, Dv, vec, tid);
     for (int j = tid; j < nkeys; j += kThreads) {
-      const int tile = t0 + j / bkv;
-      pos_s[j] = a.pos[(size_t)table[tile / a.sub] * a.block_size
-                       + (tile % a.sub) * bkv + j % bkv];
+      pos_s[j] = a.pos[row0_s[j / bkv] + j % bkv];
     }
     __syncthreads();
     // Scores of the whole stage; masked keys get -inf, so their

@@ -24,6 +24,12 @@ from ..layers.attention import init_paged_kv_cache
 from ..layers.common import resolve_device
 from .cache_pool import CacheBackend
 from .prefix_cache import RadixPrefixCache
+from .programs import (
+    clear_blocks_program,
+    copy_blocks_program,
+    make_decode_step_paged,
+    make_prefill_chunk_paged,
+)
 
 
 class BlockManager:
@@ -115,14 +121,7 @@ class PagedBackend(CacheBackend):
                  dtype=torch.bfloat16, block_size: int = 16,
                  num_blocks: Optional[int] = None,
                  prefix_cache: bool = True, use_kernel: bool = True,
-                 cache_generated: bool = False, device="cuda"):
-        from .programs import (
-            clear_blocks_program,
-            copy_blocks_program,
-            make_decode_step_paged,
-            make_prefill_chunk_paged,
-        )
-
+                 device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_slots = num_slots
@@ -140,9 +139,6 @@ class PagedBackend(CacheBackend):
         self.prefix: Optional[RadixPrefixCache] = (
             RadixPrefixCache(block_size) if prefix_cache else None
         )
-        # cache_finished() publishes a retired request's prompt+OUTPUT
-        # block chain into the radix tree (multi-turn reuse), opt-in.
-        self.cache_generated = cache_generated and self.prefix is not None
         self.tables = np.zeros((num_slots, self.blocks_per_row), np.int32)
         self._tables_dev = None  # rebuilt lazily when tables change
         self._free_slots: List[int] = list(range(num_slots - 1, -1, -1))
@@ -152,8 +148,6 @@ class PagedBackend(CacheBackend):
         self.use_kernel = use_kernel
         self._prefill_chunk = make_prefill_chunk_paged(cfg)
         self._decode = make_decode_step_paged(cfg, use_kernel=use_kernel)
-        self._clear_blocks = clear_blocks_program
-        self._copy_blocks = copy_blocks_program
 
     # -- CacheBackend ------------------------------------------------------
 
@@ -257,21 +251,6 @@ class PagedBackend(CacheBackend):
                                                device=self.device)
         return self._decode(params, toks, pos, self._tables_dev, self.cache)
 
-    def cache_finished(self, entry):
-        """Publish the retiring request's prompt+output chain into the
-        radix tree (``cache_generated``). Only full blocks are insertable,
-        and the last emitted token is excluded — it was sampled but never
-        fed, so its KV slot is unwritten."""
-        if not self.cache_generated or entry.req.no_prefix_cache:
-            return
-        toks = list(entry.req.prompt) + list(entry.req.out[:-1])
-        n_full = len(toks) // self.block_size
-        if n_full == 0:
-            return
-        row = self.tables[entry.slot]
-        self.prefix.insert(toks[: n_full * self.block_size],
-                           [int(b) for b in row[:n_full]], self.mgr)
-
     def retire(self, slot: int):
         row = self.tables[slot]
         for b in row:
@@ -313,10 +292,10 @@ class PagedBackend(CacheBackend):
         """pos -> -1 for freshly allocated blocks: stale entries from the
         previous owner must not alias the new request's positions."""
         if blocks:
-            self._clear_blocks(self.cache, blocks)
+            clear_blocks_program(self.cache, blocks)
 
     def copy_blocks(self, src: List[int], dst: List[int]):
         """Device copy src[i] -> dst[i] (copy-on-write)."""
         assert len(src) == len(dst)
         if src:
-            self._copy_blocks(self.cache, src, dst)
+            copy_blocks_program(self.cache, src, dst)

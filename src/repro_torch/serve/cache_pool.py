@@ -42,10 +42,6 @@ class CacheBackend:
         """One batched decode step over all slots; returns logits."""
         raise NotImplementedError
 
-    def cache_finished(self, entry):
-        """Hook fired at normal retirement (not preemption), before the
-        slot is released."""
-
     def retire(self, slot: int):
         """Release every resource `slot` holds."""
         raise NotImplementedError

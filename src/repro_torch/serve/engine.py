@@ -10,8 +10,9 @@ attention runs the paged decode-attention kernel on CUDA
 (``use_kernel=True``, the default) or the gather path.
 
 Not ported yet: the contiguous backend, speculative decoding, span
-tracing, the flight recorder and model-interior telemetry; asking for
-them raises ``NotImplementedError``.
+tracing, the flight recorder and model-interior telemetry (asking for
+them raises ``NotImplementedError``), and publishing generated tokens
+into the radix tree (the JAX engine's ``cache_generated``).
 """
 from __future__ import annotations
 
@@ -56,10 +57,8 @@ class ServeEngine:
     KV block, ``num_blocks`` total pool blocks (default: one max_len row
     per slot), ``prefix_cache`` shares common prompt prefixes through the
     radix tree, ``use_kernel`` picks the paged decode-attention kernel
-    (default) or the gather path, ``cache_generated`` also publishes
-    retired requests' generated tokens into the radix tree. ``device``
-    is where the model and the pools live (``"cuda"`` unless the caller
-    asks for ``"cpu"``).
+    (default) or the gather path. ``device`` is where the model and the
+    pools live (``"cuda"`` unless the caller asks for ``"cpu"``).
 
     ``max_queue`` bounds the admission queue (`submit` raises
     `scheduler.QueueFull`); the tick loop enforces per-request deadlines,
@@ -69,12 +68,12 @@ class ServeEngine:
 
     def __init__(self, cfg, params, batch_size: int, max_len: int,
                  eos_id: Optional[int] = None, pad_id: int = 0,
-                 default_sampling: SamplingParams = GREEDY, seed: int = 0,
+                 default_sampling: SamplingParams = GREEDY,
                  prefill_chunk: Optional[int] = None,
                  cache_dtype=torch.bfloat16, backend: str = "paged",
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefix_cache: bool = True, use_kernel: bool = True,
-                 cache_generated: bool = False, spec=None,
+                 spec=None,
                  max_queue: Optional[int] = None, trace: bool = False,
                  flight_recorder: int = 0, telemetry: bool = False,
                  device="cuda"):
@@ -94,12 +93,11 @@ class ServeEngine:
         self.max_len = max_len
         self.pad_id = pad_id
         self.default_sampling = default_sampling
-        self.seed = seed
         self.backend = PagedBackend(
             cfg, batch_size, max_len, dtype_of(cache_dtype),
             block_size=block_size, num_blocks=num_blocks,
             prefix_cache=prefix_cache, use_kernel=use_kernel,
-            cache_generated=cache_generated, device=self.device,
+            device=self.device,
         )
         chunk = prefill_chunk or min(32, self.backend.max_chunk)
         if chunk > self.backend.max_chunk:
@@ -189,9 +187,7 @@ class ServeEngine:
         self._admission_hold = bool(self.sched.live)
 
     def _retire_entry(self, entry):
-        """Normal completion: publish reusable state, release the slot,
-        unblock admission."""
-        self.backend.cache_finished(entry)
+        """Normal completion: release the slot, unblock admission."""
         self.backend.retire(entry.slot)
         self._admission_hold = False
 

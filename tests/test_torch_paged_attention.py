@@ -3,18 +3,17 @@ version (what the wrapper runs on CPU tensors) against the JAX Pallas
 kernel in interpret mode and against the JAX gather oracle, across GQA
 widths, sliding windows, ragged tables with null blocks, inactive rows
 and subdivided pool blocks (f32, atol 1e-5); the tile policy; row
-independence; and, on a GPU, the CUDA kernel and its no-fallback rule."""
-import jax.numpy as jnp
+independence; and, on a GPU, the CUDA kernel and its no-fallback rule.
+
+The JAX reference is imported by the ``jx`` fixture, so that the file
+also collects on a GPU machine without jax, where the ``cuda``-marked
+tests (which need no jax) run."""
+import types
+
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.paged_attention_kernels import (
-    paged_decode_attend as jax_paged_decode_attend,
-)
-from repro.kernels.tuning import KernelConfig as JaxKernelConfig
-from repro.kernels.tuning import paged_config as jax_paged_config
-from repro.layers.attention import _attend, _paged_view, make_mask
 from repro_torch.kernels.paged_attention import (
     paged_decode_attend,
     paged_decode_attend_ref,
@@ -22,6 +21,20 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.tuning import KernelConfig, paged_config
 
 ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def jx():
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import tuning
+    from repro.kernels.paged_attention_kernels import paged_decode_attend
+    from repro.layers.attention import _attend, _paged_view, make_mask
+
+    return types.SimpleNamespace(
+        jnp=jnp, paged_decode_attend=paged_decode_attend,
+        KernelConfig=tuning.KernelConfig, paged_config=tuning.paged_config,
+        attend=_attend, paged_view=_paged_view, make_mask=make_mask)
 
 
 def _case(seed, groups, heads, block_size, row_lens, blocks_per_row,
@@ -56,12 +69,12 @@ def _port(arrs, **kw):
                                **kw).numpy()
 
 
-def _jax_gather(arrs, window, is_global):
-    q, k, v, pos, tables, qpos = (jnp.asarray(a) for a in arrs)
-    gathered, kpos = _paged_view({"k": k, "v": v, "pos": pos}, tables)
-    mask = make_mask(qpos[:, None], kpos, True, window, is_global)
-    return np.asarray(_attend(q[:, None], gathered["k"], gathered["v"],
-                              mask)[:, 0])
+def _jax_gather(jx, arrs, window, is_global):
+    q, k, v, pos, tables, qpos = (jx.jnp.asarray(a) for a in arrs)
+    gathered, kpos = jx.paged_view({"k": k, "v": v, "pos": pos}, tables)
+    mask = jx.make_mask(qpos[:, None], kpos, True, window, is_global)
+    return np.asarray(jx.attend(q[:, None], gathered["k"], gathered["v"],
+                                mask)[:, 0])
 
 
 CASES = [
@@ -79,19 +92,19 @@ CASES = [
 
 @pytest.mark.parametrize("groups,heads,window,is_global,block_size,bkv",
                          CASES)
-def test_plain_matches_jax_kernel_and_gather(groups, heads, window,
+def test_plain_matches_jax_kernel_and_gather(jx, groups, heads, window,
                                              is_global, block_size, bkv):
     row_lens = [3 * block_size + 1, 2, block_size, -1]
     arrs = _case(0, groups, heads, block_size, row_lens, 4,
                  hole=window is None)
     kw = dict(causal=True, window=window, is_global=is_global)
     out = _port(arrs, cfg=KernelConfig(paged_block_kv=bkv), **kw)
-    ref_kernel = np.asarray(jax_paged_decode_attend(
-        *(jnp.asarray(a) for a in arrs),
-        cfg=JaxKernelConfig(paged_block_kv=bkv, interpret=True), **kw))
+    ref_kernel = np.asarray(jx.paged_decode_attend(
+        *(jx.jnp.asarray(a) for a in arrs),
+        cfg=jx.KernelConfig(paged_block_kv=bkv, interpret=True), **kw))
     np.testing.assert_allclose(out, ref_kernel, rtol=0, atol=ATOL)
     active = arrs[-1] >= 0
-    ref_gather = _jax_gather(arrs, window, is_global)
+    ref_gather = _jax_gather(jx, arrs, window, is_global)
     np.testing.assert_allclose(out[active], ref_gather[active], rtol=0,
                                atol=ATOL)
     # inactive rows: every key masked -> defined zeros, never NaN
@@ -99,12 +112,12 @@ def test_plain_matches_jax_kernel_and_gather(groups, heads, window,
 
 
 @pytest.mark.parametrize("block_size", [16, 256, 192, 250])
-def test_paged_config_matches_jax(block_size):
+def test_paged_config_matches_jax(jx, block_size):
     assert (paged_config(block_size).paged_block_kv
-            == jax_paged_config(block_size).paged_block_kv)
+            == jx.paged_config(block_size).paged_block_kv)
     base = KernelConfig(paged_block_kv=2)
     assert (paged_config(block_size, base).paged_block_kv
-            == jax_paged_config(block_size, JaxKernelConfig(
+            == jx.paged_config(block_size, jx.KernelConfig(
                 paged_block_kv=2)).paged_block_kv)
 
 

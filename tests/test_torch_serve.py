@@ -226,3 +226,34 @@ def test_sampling_is_per_request_and_batch_independent():
     assert int(solo[0]) == int(toks[2])
     shuffled = sample_tokens(logits[[2, 1, 0]], *(a[[2, 1, 0]] for a in args))
     assert shuffled.tolist() == toks[[2, 1, 0]].tolist()
+
+
+def test_cancel_deadline_and_poisoned_row_release_everything():
+    """A cancelled live row, a queued request past its deadline and a row
+    whose logits turn non-finite all retire within the tick with their
+    reason, and the pool drains to the prefix tree's blocks only; the
+    other requests still finish."""
+    _, tcfg, _, tparams = _qwen_pair()
+    eng = ServeEngine(tcfg, tparams, cache_dtype=torch.float32,
+                      device="cpu", batch_size=3, max_len=64, block_size=8)
+    p = _prompts()
+    keep = Request(prompt=p[2], max_new_tokens=8)
+    live = Request(prompt=p[3], max_new_tokens=8)
+    poisoned = Request(prompt=p[4], max_new_tokens=8)
+    late = Request(prompt=p[0], max_new_tokens=4, deadline_s=0.0)
+    for r in (keep, live, poisoned, late):
+        eng.submit(r)
+    eng.step()  # admits three; `late` stays queued and expires next tick
+    while not eng.sched.entry_for(poisoned) or len(poisoned.out) == 0:
+        eng.step()
+    assert late.finish_reason == "deadline"
+    slot = eng.sched.entry_for(poisoned).slot
+    eng._logits[slot] = float("nan")
+    assert eng.cancel(live) and live.finish_reason == "cancelled"
+    assert eng.sched.entry_for(live) is None
+    eng.run()
+    assert poisoned.finish_reason == "error" and eng.nonfinite_retired == 1
+    assert keep.finish_reason == "length" and len(keep.out) == 8
+    assert not eng.cancel(keep)  # already finished
+    assert eng.backend.tables.sum() == 0
+    assert eng.backend.mgr.num_used == len(eng.backend.prefix)
