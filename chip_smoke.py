@@ -19,9 +19,11 @@ prints no result line):
 4. serve: full-width qwen2-0.5b (24 layers, random weights from a seeded
    generator, bf16 compute) answers 16 greedy requests through
    ``ServeEngine(backend="paged")``; the kernel's launch count must equal
-   decode steps x 24. The same requests then go through a gather-path
-   engine (``use_kernel=False``) and the first decode tick's logits are
-   held against it.
+   decode steps x 24. A second kernel engine then runs the same requests,
+   and a burst of 8 short ones that keeps every slot decoding, tick by
+   tick beside a gather-path engine (``use_kernel=False``), teacher
+   forced: the logits of every decoding row at every tick are held
+   against the gather engine's.
 
 The lines before the last carry the numbers: the card line as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -177,8 +179,12 @@ def phase_kernels(torch):
     )
     from repro_torch.kernels.tuning import KernelConfig
 
-    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    # (atol, rtol) of |out - ref| <= atol + rtol |ref|, elementwise. In
+    # bf16 both sides agree in f32 and then round to bf16, so they differ
+    # by at most one bf16 step of the output, 2^-7 |ref|.
+    tol = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-5, 2.0**-7)}
     lens8 = [2048, 1500, 1024, 700, 300, 17, -1, 5]
+    long_rows = [r for r, n in enumerate(lens8) if n >= 1024]
     cases = [
         # (label, B, H, G, D, block_size, dtype, window, is_global, cfg)
         ("slice bf16", 8, 14, 2, 64, 16, torch.bfloat16, None, True, None),
@@ -208,7 +214,12 @@ def phase_kernels(torch):
         out = paged_decode_attend(*args, **kw)
         torch.cuda.synchronize()
         ref = paged_decode_attend_ref(*args, **kw)
-        err = (out.float() - ref.float()).abs().max().item()
+        atol, rtol = tol[dt]
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        within = bool((diff <= atol + rtol * ref.float().abs()).all())
+        long_err = diff[long_rows].max().item()
+        long_mag = ref[long_rows].float().abs().mean().item()
         finite = bool(torch.isfinite(out).all())
         inactive_zero = bool((out[6] == 0).all())
         rows = torch.cat([
@@ -217,10 +228,12 @@ def phase_kernels(torch):
             for r in range(B)
         ])
         bitwise = torch.equal(rows, out)
-        ok = err <= tol[dt] and finite and inactive_zero and bitwise
+        ok = within and finite and inactive_zero and bitwise
         log(f"[kernel] paged_decode_attend {label}: B={B} H={H} G={G} D={D} "
             f"block={bs} window={window} is_global={is_global} "
-            f"max_abs_err={err:.3e} (tol {tol[dt]:.0e}) finite={finite} "
+            f"max_abs_err={err:.3e} (tol {atol:.0e} + {rtol:.4g}|ref|: "
+            f"{within}) rows of >=1024 tokens: max_abs_err={long_err:.3e}, "
+            f"mean |out| {long_mag:.3e}; finite={finite} "
             f"inactive_row_zero={inactive_zero} "
             f"batched==batch1_bitwise={bitwise}")
         if not ok:
@@ -236,6 +249,11 @@ def phase_kernels(torch):
         ((q, k.transpose(1, 2).contiguous().transpose(1, 2), v, pos,
           tables, qpos), "non-contiguous pool"),
         ((q, k, v, pos.long(), tables, qpos), "int64 positions"),
+        ((*(t[..., :60].contiguous() for t in (q, k, v)), pos, tables, qpos),
+         "head dim 60: 120 bytes, not whole 16-byte loads"),
+        ((q, torch.empty(k.numel() + 1, dtype=k.dtype, device="cuda")[1:]
+          .view(k.shape).copy_(k), v, pos, tables, qpos),
+         "pool 2 bytes past a 16-byte boundary"),
     ):
         try:
             paged_decode_attend(*bad)
@@ -260,17 +278,19 @@ def phase_kernels(torch):
     kv_view = [t[idx].reshape(B, nb * bs, G, D) for t in (k, v)]
     kpos = pos[idx].reshape(B, nb * bs)
     mask = ((kpos >= 0) & (kpos <= qpos[:, None].long()))[:, None, None, :]
-    kh, vh = (t.repeat_interleave(H // G, dim=2).transpose(1, 2).contiguous()
-              for t in kv_view)
+    # G key/value heads, as the kernel reads them; SDPA groups the queries
+    kg, vg = (t.transpose(1, 2).contiguous() for t in kv_view)
     qh = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=mask),
-                         flush=flush)
+    library_ms = time_ms(
+        torch, lambda: sdpa(qh, kg, vg, attn_mask=mask, enable_gqa=True),
+        flush=flush)
     bound_ms, bound_by = paged_bound_ms(q, k, tables, qpos, bs)
     log(f"[kernel] paged_decode_attend timing (B=8 H=14 G=2 D=64 block 16, "
         f"bf16, L2 flushed): kernel_ms={kernel_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms(sdpa over gathered "
-        f"view)={library_ms:.4f} bound={bound_ms * 1e3:.3f} us ({bound_by})")
+        f"plain_ms={plain_ms:.4f} library_ms(sdpa with enable_gqa over the "
+        f"gathered view)={library_ms:.4f} bound={bound_ms * 1e3:.3f} us "
+        f"({bound_by})")
     return {"paged_decode_attend": {
         "max_abs_err": main["err"], "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
@@ -296,36 +316,79 @@ def make_requests(np, vocab, seed=0):
     return prompts
 
 
-def run_engine(torch, eng, prompts, max_new):
-    """Drive ``eng`` over ``prompts``; returns the requests, the first
-    decode tick's logits of the rows it decoded, and timings."""
-    from repro_torch.serve import Request
-
+def timed_decode(torch, eng):
+    """Wrap ``eng``'s decode program so each call's synchronised host time
+    lands in the returned list."""
     decode_s = []
     inner = eng.backend.decode
 
-    def timed_decode(*a):
+    def decode(*a):
         t0 = time.perf_counter()
         out = inner(*a)
         torch.cuda.synchronize()
         decode_s.append(time.perf_counter() - t0)
         return out
 
-    eng.backend.decode = timed_decode
+    eng.backend.decode = decode
+    return decode_s
+
+
+def run_engine(torch, eng, prompts, max_new):
+    """Drive ``eng`` over ``prompts``; returns the requests, the wall
+    seconds and the decode-step times."""
+    from repro_torch.serve import Request
+
+    decode_s = timed_decode(torch, eng)
     reqs = [Request(prompt=list(p), max_new_tokens=max_new) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
-    first = None
-    while eng.sched.pending():
-        eng.step()
-        if first is None and eng.decode_steps == 1:
-            rows = sorted(e.slot for e in eng.sched.decode_entries())
-            first = (rows, eng._logits[rows].clone())
+    eng.run()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return reqs, first, wall, decode_s
+    return reqs, time.perf_counter() - t0, decode_s
+
+
+def teacher_forced(torch, eng, oracle, prompts, max_new):
+    """Run ``eng`` (kernel) and ``oracle`` (gather) tick by tick over the
+    same requests. Before each sampling pass the oracle's logits of every
+    decoding row are held against the engine's, then replaced by them, so
+    both engines sample the same tokens and keep the same schedule: every
+    live row is compared at every tick, late in each request too.
+
+    Returns per-tick (slots, max abs diff, greedy tokens that agree)."""
+    from repro_torch.serve import Request
+
+    snap = {}
+    ticks = []
+    eng_decode, oracle_decode = eng._do_decode, oracle._do_decode
+
+    def eng_sample():
+        snap["slots"] = sorted(e.slot for e in eng.sched.decode_entries())
+        snap["logits"] = eng._logits.clone()
+        return eng_decode()
+
+    def oracle_sample():
+        slots = sorted(e.slot for e in oracle.sched.decode_entries())
+        if slots != snap["slots"]:
+            raise AssertionError(f"schedules diverged: kernel engine decodes "
+                                 f"{snap['slots']}, gather engine {slots}")
+        if slots:
+            mine, ref = snap["logits"][slots], oracle._logits[slots]
+            agree = int((mine.argmax(-1) == ref.argmax(-1)).sum())
+            ticks.append((slots, (mine - ref).abs().max().item(), agree))
+        oracle._logits = snap["logits"]
+        return oracle_decode()
+
+    eng._do_decode, oracle._do_decode = eng_sample, oracle_sample
+    for e in (eng, oracle):
+        for p in prompts:
+            e.submit(Request(prompt=list(p), max_new_tokens=max_new))
+    while eng.sched.pending() or oracle.sched.pending():
+        snap.clear()
+        eng.step()
+        oracle.step()
+    return ticks
 
 
 def profile_ticks(torch, eng, n):
@@ -392,7 +455,7 @@ def phase_serve(torch, card):
     eng = ServeEngine(cfg, params, **geo)
     torch.cuda.reset_peak_memory_stats()
     paged_decode_attend.launches = 0
-    reqs, first, wall, decode_s = run_engine(torch, eng, prompts, max_new)
+    reqs, wall, decode_s = run_engine(torch, eng, prompts, max_new)
     launches = paged_decode_attend.launches
     done = all(r.done and r.finish_reason == "length" for r in reqs)
     hits = eng.backend.prefix.hits
@@ -446,23 +509,43 @@ def phase_serve(torch, card):
         log(f"[profile]   top: {us / 1e3:.2f} ms x{cnt} {name[:90]}")
     del prof_eng
 
-    oracle = ServeEngine(cfg, params, use_kernel=False, **geo)
-    oreqs, ofirst, owall, odecode_s = run_engine(torch, oracle, prompts,
-                                                 max_new)
-    if first[0] != ofirst[0]:
-        raise AssertionError("the two engines decoded different rows first")
-    diff = (first[1] - ofirst[1]).abs().max().item()
-    same = sum(a == b for r, o in zip(reqs, oreqs)
-               for a, b in zip(r.out, o.out))
-    n_o = sum(len(o.out) for o in oreqs)
-    log(f"[serve] gather engine (use_kernel=False): {n_o / owall:.1f} tok/s,"
-        f" decode step p50 {statistics.median(odecode_s) * 1e3:.2f} ms")
-    log(f"[serve] first decode tick logits, kernel vs gather engine, rows "
-        f"{first[0]}: max_abs_diff={diff:.3e} (tol 5e-2); identical greedy "
-        f"tokens {same}/{n_tok} = {same / n_tok:.4f}")
-    if not math.isfinite(diff) or diff > 5e-2:
+    # Kernel engine against the gather engine (use_kernel=False), teacher
+    # forced: the serving trace above, then a burst of 8 short prompts
+    # that keeps all 8 slots decoding at once.
+    rng = np.random.RandomState(1)
+    burst = [rng.randint(1, cfg.vocab_size, size=n).tolist()
+             for n in range(16, 48, 4)]
+    ticks = []
+    odecode_s = []
+    for trace, n_new in ((prompts, max_new), (burst, 48)):
+        oracle = ServeEngine(cfg, params, use_kernel=False, **geo)
+        times = timed_decode(torch, oracle)
+        ticks += teacher_forced(torch, ServeEngine(cfg, params, **geo),
+                                oracle, trace, n_new)
+        odecode_s += times
+        del oracle
+    diffs = [d for _, d, _ in ticks]
+    rows = sum(len(sl) for sl, _, _ in ticks)
+    agree = sum(a for _, _, a in ticks)
+    full = sum(len(sl) == geo["batch_size"] for sl, _, _ in ticks)
+    slots_seen = sorted({x for sl, _, _ in ticks for x in sl})
+    worst = max(range(len(ticks)), key=lambda i: diffs[i])
+    log(f"[serve] gather engine (use_kernel=False): decode step p50 "
+        f"{statistics.median(odecode_s) * 1e3:.2f} ms")
+    log(f"[serve] kernel vs gather engine, teacher forced: {len(ticks)} "
+        f"sampling passes, {rows} row logits compared (slots {slots_seen}; "
+        f"{full} passes with all {geo['batch_size']} slots decoding); "
+        f"first passes max_abs_diff "
+        f"{', '.join(f'{d:.3e}' for d in diffs[:3])}; "
+        f"all passes max_abs_diff={diffs[worst]:.3e} at pass {worst} "
+        f"(rows {ticks[worst][0]}), median of the passes' max "
+        f"{statistics.median(diffs):.3e} (tol 5e-2); identical greedy "
+        f"tokens {agree}/{rows} = {agree / rows:.4f}")
+    if not all(math.isfinite(d) for d in diffs) or max(diffs) > 5e-2:
         raise AssertionError("kernel engine logits disagree with the gather "
                              "engine")
+    if full == 0 or len(slots_seen) != geo["batch_size"]:
+        raise AssertionError("the comparison never had every slot decoding")
     return {"paged_decode_attend": launches}
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .layers.common import resolve_device
 from .models.lm import segment_plan
 
 
@@ -29,9 +30,11 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_jax(tree, cfg, device="cpu"):
+def params_from_jax(tree, cfg, device="cuda"):
     """JAX LM param pytree (numpy leaves) -> the port's params on
-    ``device``, dtypes kept as given."""
+    ``device`` (the card unless the caller passes ``"cpu"``), dtypes kept
+    as given."""
+    device = resolve_device(device)
     segs = segment_plan(cfg)
     if len(tree["segments"]) != len(segs):
         raise ValueError(f"{len(tree['segments'])} segments in the tree, "

@@ -117,43 +117,37 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* dst) {
 
 // Stage `nkeys` rows of width D of one KV group into shared memory as
 // f32 (row stride `ld`). Key j lives at pool row row0[j / bkv] + j % bkv.
-// With `vec`, each thread keeps kLoadsInFlight 16-byte loads in flight.
+// Each thread keeps kLoadsInFlight 16-byte loads in flight; the entry point
+// admits only D a multiple of the vector width and 16-byte aligned pools,
+// so every row start is aligned.
 template <typename T>
 __device__ __forceinline__ void stage_rows(const T* pool, int G, int g, int D,
                                            const int* row0, int bkv,
                                            int nkeys, float* dst, int ld,
-                                           bool vec, int tid) {
+                                           int tid) {
   const size_t row_elems = (size_t)G * D;
-  if (vec) {
-    constexpr int kVec = 16 / sizeof(T);
-    const int per_key = D / kVec;
-    const int n = nkeys * per_key;
-    for (int base = tid; base < n; base += kThreads * kLoadsInFlight) {
-      uint4 r[kLoadsInFlight];
+  constexpr int kVec = 16 / sizeof(T);
+  const int per_key = D / kVec;
+  const int n = nkeys * per_key;
+  for (int base = tid; base < n; base += kThreads * kLoadsInFlight) {
+    uint4 r[kLoadsInFlight];
 #pragma unroll
-      for (int u = 0; u < kLoadsInFlight; ++u) {
-        const int i = base + u * kThreads;
-        if (i < n) {
-          const int j = i / per_key, c = i - j * per_key;
-          const size_t row = (size_t)row0[j / bkv] + j % bkv;
-          r[u] = *reinterpret_cast<const uint4*>(
-              pool + row * row_elems + (size_t)g * D + (size_t)c * kVec);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kLoadsInFlight; ++u) {
-        const int i = base + u * kThreads;
-        if (i < n) {
-          const int j = i / per_key, c = i - j * per_key;
-          unpack<T>(r[u], dst + j * ld + c * kVec);
-        }
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const int i = base + u * kThreads;
+      if (i < n) {
+        const int j = i / per_key, c = i - j * per_key;
+        const size_t row = (size_t)row0[j / bkv] + j % bkv;
+        r[u] = *reinterpret_cast<const uint4*>(
+            pool + row * row_elems + (size_t)g * D + (size_t)c * kVec);
       }
     }
-  } else {
-    for (int i = tid; i < nkeys * D; i += kThreads) {
-      const int j = i / D, d = i - j * D;
-      const size_t row = (size_t)row0[j / bkv] + j % bkv;
-      dst[j * ld + d] = to_f32(pool[row * row_elems + (size_t)g * D + d]);
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const int i = base + u * kThreads;
+      if (i < n) {
+        const int j = i / per_key, c = i - j * per_key;
+        unpack<T>(r[u], dst + j * ld + c * kVec);
+      }
     }
   }
 }
@@ -200,12 +194,6 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
   const int* table = a.tables + (size_t)b * a.nb;
   const TKV* kp = static_cast<const TKV*>(a.k);
   const TKV* vp = static_cast<const TKV*>(a.v);
-  // 16-byte vector loads need D to be a multiple of the vector width and
-  // 16-byte aligned pools (row starts are then aligned too).
-  constexpr int kVec = 16 / sizeof(TKV);
-  const bool vec = Dk % kVec == 0 && Dv % kVec == 0 &&
-                   reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(vp) % 16 == 0;
 
   for (int t0 = 0; t0 < n_tiles; t0 += a.stage_tiles) {
     const int nt = min(a.stage_tiles, n_tiles - t0);
@@ -218,8 +206,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
       row0_s[tt] = table[tile / a.sub] * a.block_size + (tile % a.sub) * bkv;
     }
     __syncthreads();
-    stage_rows<TKV>(kp, a.G, g, Dk, row0_s, bkv, nkeys, k_s, ks, vec, tid);
-    stage_rows<TKV>(vp, a.G, g, Dv, row0_s, bkv, nkeys, v_s, Dv, vec, tid);
+    stage_rows<TKV>(kp, a.G, g, Dk, row0_s, bkv, nkeys, k_s, ks, tid);
+    stage_rows<TKV>(vp, a.G, g, Dv, row0_s, bkv, nkeys, v_s, Dv, tid);
     for (int j = tid; j < nkeys; j += kThreads) {
       pos_s[j] = a.pos[row0_s[j / bkv] + j % bkv];
     }
@@ -296,8 +284,9 @@ cudaError_t launch(const Args& a, int B, size_t smem, cudaStream_t stream) {
 
 // Plain C entry point for ctypes. dtype codes: 0 = float32, 1 = bfloat16.
 // Every pointer is a device pointer; `stream` is a cudaStream_t. Returns
-// the cudaError_t of the launch (0 = success); invalid shapes return
-// cudaErrorInvalidValue without launching.
+// the cudaError_t of the launch (0 = success); invalid shapes, head dims
+// that are not a multiple of 16 bytes and pools that are not 16-byte
+// aligned return cudaErrorInvalidValue without launching.
 extern "C" int paged_decode_attend_launch(
     const void* q, const void* k, const void* v, const void* pos,
     const void* tables, const void* q_pos, void* out, int q_dtype,
@@ -308,6 +297,13 @@ extern "C" int paged_decode_attend_launch(
       nb <= 0 || bkv <= 0 || block_size % bkv != 0 || q_dtype < 0 ||
       q_dtype > 1 || kv_dtype < 0 || kv_dtype > 1 || B > 65535 ||
       G > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // 16-byte vector loads: D a multiple of 16 bytes, pools 16-byte aligned.
+  const int kv_elem = kv_dtype == 0 ? 4 : 2;
+  if ((Dk * kv_elem) % 16 != 0 || (Dv * kv_elem) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(v) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (B == 0) return (int)cudaSuccess;

@@ -111,6 +111,15 @@ def _check_cuda_operands(q, k_pool, v_pool, pos_pool, tables, q_pos):
     for name in ("pos_pool", "tables", "q_pos"):
         if named[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {named[name].dtype}")
+    # The kernel stages K and V rows with 16-byte vector loads.
+    for name in ("k_pool", "v_pool"):
+        t = named[name]
+        if (t.shape[-1] * t.element_size()) % 16:
+            raise ValueError(f"{name} head dim {t.shape[-1]} x "
+                             f"{t.element_size()} B is not a multiple of "
+                             f"16 bytes")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
 
 
 def _launcher():

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from ..kernels.paged_attention import paged_decode_attend
-from .common import lecun_init
+from .common import lecun_init, resolve_device
 from .rotary import apply_rope
 
 NEG_INF = -2.0**30
@@ -51,7 +51,7 @@ def gqa_init(gen: torch.Generator, cfg):
 
 
 def init_paged_kv_cache(cfg, num_blocks: int, block_size: int,
-                        dtype=torch.bfloat16, device=None):
+                        dtype=torch.bfloat16, *, device):
     """Paged cache for one layer: one pool of ``num_blocks`` fixed-size
     token blocks shared by ALL rows (serve/block_manager.py hands blocks
     out); a request reaches its tokens through a per-row block table.
@@ -61,6 +61,7 @@ def init_paged_kv_cache(cfg, num_blocks: int, block_size: int,
     a = cfg.attention
     if a.kind != "gqa":
         raise NotImplementedError(f"attention kind {a.kind!r} not ported")
+    device = resolve_device(device)
     shape = (num_blocks, block_size, a.num_kv_heads, a.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),

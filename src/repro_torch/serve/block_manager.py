@@ -99,11 +99,12 @@ class BlockManager:
 
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int,
-                     dtype=torch.bfloat16, device=None):
+                     dtype=torch.bfloat16, *, device):
     """Per-layer cache list: every attention layer gets a (num_blocks,
     block_size, ...) block pool SHARED by all rows."""
+    device = resolve_device(device)
     return [{"attn": init_paged_kv_cache(cfg, num_blocks, block_size,
-                                         dtype, device)}
+                                         dtype, device=device)}
             for _ in range(cfg.num_layers)]
 
 
@@ -134,7 +135,7 @@ class PagedBackend(CacheBackend):
             num_blocks = num_slots * self.blocks_per_row + 1
         self.num_blocks = num_blocks
         self.cache = init_paged_cache(cfg, num_blocks, block_size, dtype,
-                                      self.device)
+                                      device=self.device)
         self.mgr = BlockManager(num_blocks)
         self.prefix: Optional[RadixPrefixCache] = (
             RadixPrefixCache(block_size) if prefix_cache else None

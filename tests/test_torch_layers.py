@@ -121,7 +121,8 @@ def test_gqa_apply_paged_prefill_then_kernel_decode(kv_heads):
     bs = 4
     tables = np.array([[3, 1, 0, 0], [2, 5, 4, 0]], np.int32)
     jcache = jattn.init_paged_kv_cache(jcfg, 8, bs, dtype=jnp.float32)
-    tcache = tattn.init_paged_kv_cache(tcfg, 8, bs, dtype=torch.float32)
+    tcache = tattn.init_paged_kv_cache(tcfg, 8, bs, dtype=torch.float32,
+                                        device="cpu")
     x = rng.randn(2, 8, jcfg.d_model).astype(np.float32)
     poss = np.array([[-1, -1, 0, 1, 2, 3, 4, 5], np.arange(8)], np.int32)
     for s, xs, ps in ((8, x, poss),

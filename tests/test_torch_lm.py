@@ -66,7 +66,8 @@ def test_lm_apply_paged_prefill_and_decode_matches_jax(case):
     tables = np.array([[5, 2, 9, 1, 3, 4, 0, 0], [6, 7, 8, 10, 11, 0, 0, 0]],
                       np.int32)
     jcache = jax_paged_cache(jcfg, nblk, bs, 1, dtype=jnp.float32)
-    tcache = init_paged_cache(tcfg, nblk, bs, dtype=torch.float32)
+    tcache = init_paged_cache(tcfg, nblk, bs, dtype=torch.float32,
+                              device="cpu")
     rng = np.random.RandomState(0)
     toks = rng.randint(0, jcfg.vocab_size, (2, 24))
     # two 10-token chunks (row 1 left-padded), then four decode steps:
@@ -102,7 +103,7 @@ def test_params_from_jax_keeps_dtypes_and_values():
     jparams = jax_lm_init(jax.random.PRNGKey(1), jcfg)
     tree = jax.tree_util.tree_map(np.asarray, jparams)
     tree["embed"]["table"] = tree["embed"]["table"].astype(jnp.bfloat16)
-    out = params_from_jax(tree, tcfg)
+    out = params_from_jax(tree, tcfg, device="cpu")
     assert out["embed"]["table"].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         out["embed"]["table"].float().numpy(),
@@ -119,7 +120,7 @@ def test_port_lm_init_shapes_match_jax():
     jcfg, tcfg = _configs("qwen2-0.5b", num_kv_heads=2)
     jtree = jax.tree_util.tree_map(np.asarray,
                                    jax_lm_init(jax.random.PRNGKey(0), jcfg))
-    ref = params_from_jax(jtree, tcfg)
+    ref = params_from_jax(jtree, tcfg, device="cpu")
     mine = lm_init(torch.Generator().manual_seed(0), tcfg)
 
     def shapes(t):

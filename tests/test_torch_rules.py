@@ -50,16 +50,30 @@ def test_cuda_request_without_a_gpu_raises():
         pytest.skip("torch sees a GPU here; the rule is about machines "
                     "without one")
     from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import params_from_jax
+    from repro_torch.layers.attention import init_paged_kv_cache
     from repro_torch.layers.common import resolve_device
     from repro_torch.models import lm_init
     from repro_torch.serve import ServeEngine
+    from repro_torch.serve.block_manager import init_paged_cache
 
     cfg = reduced(get_config("qwen2-0.5b"))
     params = lm_init(torch.Generator().manual_seed(0), cfg)
+    tree = {"embed": {"table": params["embed"]["table"].numpy()},
+            "segments": [{}], "final_norm": {}}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+    # the entry points default to the card
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        ServeEngine(cfg, params, batch_size=2, max_len=32)  # default cuda
+        ServeEngine(cfg, params, batch_size=2, max_len=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(tree, cfg)
+    # the pool initialisers take no default device, and refuse CUDA
+    for init in (init_paged_kv_cache, init_paged_cache):
+        with pytest.raises(TypeError, match="device"):
+            init(cfg, 4, 4)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init(cfg, 4, 4, device="cuda")
 
 
 def test_unported_engine_options_raise():

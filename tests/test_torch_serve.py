@@ -151,7 +151,7 @@ def _qwen_pair():
                                dtype="float32")
     jparams = jax_lm_init(jax.random.PRNGKey(0), jcfg)
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
-                              tcfg)
+                              tcfg, device="cpu")
     return jcfg, tcfg, jparams, tparams
 
 
