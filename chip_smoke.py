@@ -155,11 +155,15 @@ def paged_bound_ms(q, k, tables, qpos, block_size):
 def time_ms(torch, fn, reps=30, flush=None):
     """Median device time of fn() (CUDA events), with L2 flushed before
     every call when ``flush`` (a large tensor) is given: the serving path
-    reads a different layer's pool at every call."""
+    reads a different layer's pool at every call. Each call is queued
+    behind a 2 ms device sleep, so the host has enqueued it before the
+    start event fires and the events read device time only (for a
+    host-bound ``fn`` its host time still shows)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
+        torch.cuda._sleep(4_000_000)  # ~2 ms at the H100's clock
         if flush is not None:
             flush.zero_()
         s = torch.cuda.Event(enable_timing=True)

@@ -57,7 +57,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStageKeys = 128;
 constexpr float kNeg = -1e30f;  // running-max start, as the TPU kernel's _NEG
 constexpr size_t kMaxSmem = 220 * 1024;
-constexpr int kLoadsInFlight = 4;  // 16-byte loads issued per thread at once
+constexpr int kLoadsInFlight = 8;  // 16-byte loads issued per thread at once
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
