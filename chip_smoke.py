@@ -16,7 +16,19 @@ prints no result line):
    batched launch equals the batch-1 launches bitwise and that malformed
    operands raise, and times the kernel, its plain version and one
    PyTorch library call at the serving path's shapes.
-4. serve: full-width qwen2-0.5b (24 layers, random weights from a seeded
+4. soft-moe kernels: holds K1 (routing), K2 (combine from K1's stats)
+   and K3 (online combine) against their plain PyTorch versions on the
+   card at the Soft-MoE B/16 layer's shapes and at ragged ones (a token
+   count that is not a multiple of the token block, the S/14-256E shape
+   over several slot blocks, a single row, f32 inputs, a d narrower
+   than its chunk, L/16's d = 1024 over two d-chunks), checks batched ==
+   batch-1 bitwise, that K2 on K1's stats agrees with K3 and K3's stats
+   with K1's, and that malformed operands raise; then times each kernel,
+   its plain version, one ``scaled_dot_product_attention`` call that
+   computes its main output (the library yardstick) and the port's
+   unfused einsum path of the same function, and reads each one's peak
+   device memory above its inputs.
+5. serve: full-width qwen2-0.5b (24 layers, random weights from a seeded
    generator, bf16 compute) answers 16 greedy requests through
    ``ServeEngine(backend="paged")``; the kernel's launch count must equal
    decode steps x 24. A second kernel engine then runs the same requests,
@@ -24,6 +36,18 @@ prints no result line):
    tick beside a gather-path engine (``use_kernel=False``), teacher
    forced: the logits of every decoding row at every tick are held
    against the gather engine's.
+6. vit: full-width, full-depth soft-moe-b/16-128e (random f32 weights from
+   a seeded generator, bf16 compute) classifies a batch of 64 images
+   through ``vit_apply`` / ``vit_features`` on the kernel path and on the
+   einsum path under ``torch.inference_mode()``: K1 and K2 must launch 6
+   times a forward and K3 never; the kernel path's pre-head features and
+   one MoE layer's output are held against the einsum path's in bf16 and
+   in f32 (the layer's input is captured from the model's own forward);
+   then images/s, forward p50 and peak memory for each path, and a
+   profiled window.
+   K3 runs on the ops-level path that combines without saved stats
+   (``kernels.ops.soft_moe_combine(..., c_stats=None)``), driven on one
+   MoE layer and held against the layer's kernel path.
 
 The lines before the last carry the numbers: the card line as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -53,6 +77,21 @@ KERNEL_SOURCES = {
         "route": "cuda",
         "source": "src/repro_torch/csrc/paged_decode_attention.cu",
         "replaces": "src/repro/kernels/paged_attention_kernels.py:118",
+    },
+    "routing_fwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/soft_moe_routing.cu",
+        "replaces": "src/repro/kernels/soft_moe_kernels.py:183",
+    },
+    "combine_apply": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/soft_moe_combine.cu",
+        "replaces": "src/repro/kernels/soft_moe_kernels.py:456",
+    },
+    "combine_online": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/soft_moe_combine.cu",
+        "replaces": "src/repro/kernels/soft_moe_kernels.py:462",
     },
 }
 
@@ -302,7 +341,336 @@ def phase_kernels(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve full-width qwen2-0.5b
+# phase 4: Soft-MoE routing and combine kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def soft_moe_case(torch, seed, b, m, d, s, dtype):
+    """x (b, m, d), ys (b, S, d) in ``dtype``; phi_n (d, S) f32
+    normalized with scale 1 (the ViT's init), all on the card."""
+    from repro_torch.kernels.ref import normalized_phi
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, m, d, generator=gen, device="cuda").to(dtype)
+    phi = torch.randn(d, s, generator=gen, device="cuda")
+    ys = torch.randn(b, s, d, generator=gen, device="cuda").to(dtype)
+    return x, normalized_phi(phi, 1.0), ys
+
+
+def within(torch, got, want, atol, rtol):
+    """(max |got - want|, all |got - want| <= atol + rtol |want|)."""
+    diff = (got.float() - want.float()).abs()
+    return diff.max().item(), bool((diff <= atol + rtol * want.float().abs())
+                                   .all())
+
+
+def soft_moe_bounds(x, s, kind):
+    """Least time on the card for one call: the bytes each input and output
+    must move over HBM bandwidth vs the f32 flops (the logits 2 m S d, the
+    mix 2 m S d, the norms 2 m d per row) over the f32 rate."""
+    b, m, d = x.shape
+    el = x.element_size()
+    tokens = b * m * d * el                        # x in (and y out for K2/K3)
+    slots = b * s * d * el                         # slots out / ys in
+    phi = d * s * 4
+    if kind == "routing":
+        nbytes = tokens + phi + slots + 2 * b * s * 4 + 2 * b * m * 4
+    else:  # combine: x, phi, ys, stats in or out, y
+        nbytes = 2 * tokens + phi + slots + 2 * b * m * 4
+    flops = b * (4 * m * s * d + 2 * m * d)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_soft_moe_kernels(torch):
+    from repro_torch.core.soft_moe import soft_moe_weights
+    from repro_torch.kernels.soft_moe_kernels import (
+        combine_apply,
+        combine_apply_ref,
+        combine_online,
+        combine_online_ref,
+        routing_fwd,
+        routing_fwd_ref,
+    )
+    from repro_torch.kernels.tuning import KernelConfig, d_chunk
+
+    # Elementwise |out - ref| <= atol + rtol |ref|. Outputs: f32 within
+    # 1e-5 relative; bf16 within one bf16 step, 2^-7 |ref| (both sides
+    # agree in f32 and then round). Softmax stats are f32 on both sides.
+    tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2.0**-7)}
+    stat_tol = (1e-5, 1e-5)
+    cases = [
+        # (label, b, m, d, S, dtype, cfg); m = 196 is not a multiple of
+        # the 32-token block
+        ("B/16 layer bf16", 64, 196, 768, 128, torch.bfloat16, None),
+        ("B/16 layer f32", 64, 196, 768, 128, torch.float32, None),
+        ("S/14-256E bf16", 8, 256, 384, 256, torch.bfloat16, None),
+        ("S/14-256E f32 bt16 bs8", 8, 256, 384, 256, torch.float32,
+         KernelConfig(block_tokens=16, block_slots=8)),
+        ("single row bf16", 1, 196, 768, 128, torch.bfloat16, None),
+        # 264 of a 384-column chunk's columns lie inside d
+        ("ragged m45 d264 S40 f32", 3, 45, 264, 40, torch.float32, None),
+        # L/16's width: two 768-column chunks, each recomputing the logits
+        ("L/16 layer d1024 bf16", 8, 196, 1024, 128, torch.bfloat16, None),
+    ]
+    main = {}
+    for i, (label, b, m, d, s, dt, kcfg) in enumerate(cases):
+        x, phi_n, ys = soft_moe_case(torch, 100 + i, b, m, d, s, dt)
+        atol, rtol = tol[dt]
+        slots, d_stats, c_stats = routing_fwd(x, phi_n, kcfg)
+        y2 = combine_apply(x, phi_n, ys, c_stats, kcfg)
+        y3, st3 = combine_online(x, phi_n, ys, kcfg)
+        torch.cuda.synchronize()
+        r_slots, r_d, r_c = routing_fwd_ref(x, phi_n, kcfg)
+        r_y2 = combine_apply_ref(x, phi_n, ys, c_stats, kcfg)
+        r_y3, r_st3 = combine_online_ref(x, phi_n, ys, kcfg)
+        errs, oks = {}, []
+        for name, got, want, (a, r) in (
+                ("K1 slots", slots, r_slots, (atol, rtol)),
+                ("K1 d_mx", d_stats[0], r_d[0], stat_tol),
+                ("K1 d_den", d_stats[1], r_d[1], stat_tol),
+                ("K1 c_mx", c_stats[0], r_c[0], stat_tol),
+                ("K1 c_den", c_stats[1], r_c[1], stat_tol),
+                ("K2 y", y2, r_y2, (atol, rtol)),
+                ("K3 y", y3, r_y3, (atol, rtol)),
+                ("K3 c_mx", st3[0], r_st3[0], stat_tol),
+                ("K3 c_den", st3[1], r_st3[1], stat_tol),
+                # K2 on K1's stats vs K3; K3's stats vs K1's
+                ("K2 vs K3 y", y2, y3, (atol, rtol)),
+                ("K3 vs K1 c_mx", st3[0], c_stats[0], stat_tol),
+                ("K3 vs K1 c_den", st3[1], c_stats[1], stat_tol)):
+            errs[name], ok = within(torch, got, want, a, r)
+            oks.append(ok)
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (slots, y2, y3, *d_stats, *c_stats, *st3))
+        # batched == batch-1, bitwise, on the first, second and last rows
+        bitwise = True
+        for r in sorted({0, min(1, b - 1), b - 1}):
+            xr, yr = x[r:r + 1], ys[r:r + 1]
+            sr, dr, cr = routing_fwd(xr, phi_n, kcfg)
+            bitwise &= torch.equal(sr[0], slots[r])
+            bitwise &= all(torch.equal(g[0], w[r])
+                           for g, w in zip(dr + cr, d_stats + c_stats))
+            cr_r = tuple(t[r:r + 1] for t in c_stats)
+            bitwise &= torch.equal(combine_apply(xr, phi_n, yr, cr_r,
+                                                 kcfg)[0], y2[r])
+            y3r, st3r = combine_online(xr, phi_n, yr, kcfg)
+            bitwise &= torch.equal(y3r[0], y3[r])
+            bitwise &= all(torch.equal(g[0], w[r])
+                           for g, w in zip(st3r, st3))
+        log(f"[softmoe] {label}: b={b} m={m} d={d} S={s} "
+            f"{str(dt).replace('torch.', '')} d_chunk={d_chunk(d)} "
+            + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+            + f" (tol outputs {atol:.0e} + {rtol:.4g}|ref|, stats "
+            f"{stat_tol[0]:.0e} + {stat_tol[1]:.0e}|ref|: {all(oks)}); "
+            f"finite={finite} batched==batch1_bitwise={bitwise}")
+        if not (all(oks) and finite and bitwise):
+            raise AssertionError(f"soft-moe kernels {label} failed")
+        if i == 0:
+            main = {"args": (x, phi_n, ys), "c_stats": c_stats,
+                    "err": {"routing_fwd": max(errs[k] for k in errs
+                                               if k.startswith("K1")),
+                            "combine_apply": errs["K2 y"],
+                            "combine_online": max(errs["K3 y"],
+                                                  errs["K3 c_mx"],
+                                                  errs["K3 c_den"])}}
+
+    # No fallback: malformed operands raise and launch nothing.
+    x, phi_n, ys = main["args"]
+    counts = lambda: (routing_fwd.launches, combine_apply.launches,  # noqa: E731
+                      combine_online.launches)
+    before = counts()
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device="cuda")[1:].view(x.shape)
+    shifted.copy_(x)
+    for call, exc, why in (
+            (lambda: routing_fwd(x.half(), phi_n), TypeError, "float16 x"),
+            (lambda: routing_fwd(x, phi_n.double()), TypeError,
+             "float64 phi_n"),
+            (lambda: combine_online(x, phi_n, ys.float()), TypeError,
+             "ys dtype != x dtype"),
+            (lambda: routing_fwd(x.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), phi_n), ValueError,
+             "non-contiguous x"),
+            (lambda: routing_fwd(x[..., :764].contiguous(),
+                                 phi_n[:764].contiguous()), ValueError,
+             "d=764, not a multiple of 8"),
+            (lambda: routing_fwd(shifted, phi_n), ValueError,
+             "x 2 bytes past a 16-byte boundary"),
+            (lambda: routing_fwd(x, phi_n, KernelConfig(block_tokens=64)),
+             ValueError, "block_tokens=64 > 32"),
+            (lambda: combine_apply(x, phi_n, ys, (main["c_stats"][0][:, :5],
+                                                  main["c_stats"][1])),
+             ValueError, "stats of the wrong shape"),
+            (lambda: routing_fwd(x, phi_n.clone().requires_grad_()),
+             NotImplementedError, "phi_n requires grad (no backward yet)")):
+        try:
+            call()
+        except exc as e:
+            log(f"[softmoe] malformed operands ({why}) raise "
+                f"{type(e).__name__}: {e}")
+        else:
+            raise AssertionError(f"malformed operands ({why}) did not raise")
+    if counts() != before:
+        raise AssertionError("a malformed call launched a kernel")
+
+    # Times at the B/16 layer's shapes (b=64, m=196, d=768, S=128, bf16).
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    c_stats = main["c_stats"]
+    calls = {
+        "routing_fwd": (lambda: routing_fwd(x, phi_n),
+                        lambda: routing_fwd_ref(x, phi_n), "routing"),
+        "combine_apply": (lambda: combine_apply(x, phi_n, ys, c_stats),
+                          lambda: combine_apply_ref(x, phi_n, ys, c_stats),
+                          "combine"),
+        "combine_online": (lambda: combine_online(x, phi_n, ys),
+                           lambda: combine_online_ref(x, phi_n, ys),
+                           "combine"),
+    }
+    b, m, d = x.shape
+    s = phi_n.shape[1]
+    # The library yardstick: one scaled_dot_product_attention call computes
+    # each kernel's main output. Dispatch (K1's slots) is SDPA(q = Phi_n^T,
+    # k = l2norm(x), v = x), a softmax over tokens per slot; combine
+    # (K2/K3's y) is SDPA(q = l2norm(x), k = Phi_n^T, v = Ys), a softmax
+    # over slots per token; scale 1. SDPA takes one dtype, so Phi_n is cast
+    # to x's. The operands are made before the timed call; l2norm(x) is the
+    # O(b m d) pre-pass the kernels also run, timed on its own. Each
+    # backend is tried on Phi_n^T broadcast over the rows and copied per
+    # row, and the fastest call that runs is the yardstick.
+    def l2norm():
+        xf = x.float()
+        return (xf / (xf.norm(dim=-1, keepdim=True) + 1e-6)).to(x.dtype)
+
+    xn4, x4, ys4 = l2norm()[:, None], x[:, None], ys[:, None]
+    phi_b = phi_n.t().contiguous().to(x.dtype)[None, None].expand(b, 1, s,
+                                                                  d)
+    layouts = {"broadcast": phi_b, "copied": phi_b.contiguous()}
+    library = {
+        "routing": sdpa_options(torch, {k: (ph, xn4, x4)
+                                        for k, ph in layouts.items()}, flush),
+        "combine": sdpa_options(torch, {k: (xn4, ph, ys4)
+                                        for k, ph in layouts.items()}, flush),
+    }
+    norm_ms = time_ms(torch, l2norm, flush=flush)
+    for kind, (default, runs, refused) in library.items():
+        log(f"[softmoe] sdpa for {kind} (b=64 m=196 d=768 S=128 bf16): "
+            f"default pick {default}; runs: "
+            + "; ".join(f"{k} {ms:.4f} ms" for k, (ms, _) in runs.items())
+            + f"; l2norm pre-pass {norm_ms:.4f} ms; refused: "
+            + "; ".join(f"{k}: {why}" for k, why in refused.items()))
+
+    # The port's einsum path of the same functions (use_kernel=False in
+    # core/soft_moe.py): the (b, m, S) weights, then the dispatch or the
+    # combine einsum.
+    phi3 = phi_n.reshape(d, s, 1)
+    one = torch.ones((), device="cuda")
+
+    def einsum_routing():
+        d_w, _ = soft_moe_weights(x, phi3, one)
+        return torch.einsum("bmd,bmnp->bnpd", x.float(), d_w).to(x.dtype)
+
+    def einsum_combine():
+        _, c_w = soft_moe_weights(x, phi3, one)
+        return torch.einsum("bnpd,bmnp->bmd", ys.float().reshape(b, s, 1, d),
+                            c_w).to(x.dtype)
+
+    einsum = {"routing": einsum_routing, "combine": einsum_combine}
+
+    def peak_above(fn):
+        """Peak device bytes fn() allocates above what is live before."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    out = {}
+    for name, (kern, plain, kind) in calls.items():
+        want = kern()[0] if name != "combine_apply" else kern()
+        label, (library_ms, lib_call) = min(library[kind][1].items(),
+                                            key=lambda r: r[1][0])
+        lib_err = (lib_call()[:, 0].float() - want.float()).abs().max().item()
+        if lib_err > 2e-2:  # the yardstick must compute the same function
+            raise AssertionError(f"sdpa ({label}) differs from {name} by "
+                                 f"{lib_err:.3e}")
+        kernel_ms = time_ms(torch, kern, flush=flush)
+        plain_ms = time_ms(torch, plain, reps=3, flush=flush)
+        einsum_ms = time_ms(torch, einsum[kind], flush=flush)
+        mem = {k: peak_above(f) / 2**20 for k, f in (
+            ("kernel", kern), ("sdpa", lib_call), ("einsum", einsum[kind]))}
+        bound_ms, bound_by, nbytes, flops = soft_moe_bounds(x, s, kind)
+        log(f"[softmoe] {name} timing (b=64 m=196 d=768 S=128 bf16, L2 "
+            f"flushed): kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} (scaled_dot_product_attention, "
+            f"{label}; max|sdpa - kernel| {lib_err:.3e}) "
+            f"einsum_path_ms={einsum_ms:.4f} (the port's unfused path) "
+            f"bound={bound_ms * 1e3:.2f} us ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> "
+            f"{flops / kernel_ms / 1e9:.2f} TFLOP/s; peak MiB above the "
+            f"inputs: kernel {mem['kernel']:.1f}, sdpa {mem['sdpa']:.1f}, "
+            f"einsum path {mem['einsum']:.1f}")
+        out[name] = {"max_abs_err": main["err"][name], "ms": kernel_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "einsum_path_ms": einsum_ms}
+    return out
+
+
+def sdpa_options(torch, operands, flush):
+    """Time one scaled_dot_product_attention call (scale 1) on each
+    operand layout in ``operands`` ({layout: (q, k, v)}) under each
+    backend that takes it. Returns (the backend PyTorch picks by default
+    for the first layout, {"BACKEND, layout": (ms, call)}, {"BACKEND,
+    layout": why it refused})."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    default = sdp_backend(torch, *next(iter(operands.values())))
+    runs, refused = {}, {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        for layout, qkv in operands.items():
+            def call(qkv=qkv, be=be):
+                with sdpa_kernel([be]):
+                    return sdpa(*qkv, scale=1.0)
+
+            key = f"{be.name}, {layout}"
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    call()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    why = [str(w.message).split(" (Triggered internally")[0]
+                           for w in caught]
+                    why = [w for w in why if not w.endswith("because:")]
+                    refused[key] = " | ".join(why or [str(e)])[:400]
+                    continue
+            runs[key] = (time_ms(torch, call, flush=flush), call)
+    return default, runs, refused
+
+
+def sdp_backend(torch, q, k, v):
+    """Name of the backend scaled_dot_product_attention picks for these
+    operands (a private query of PyTorch's; "unknown" where it is not
+    there)."""
+    try:
+        idx = torch._fused_sdp_choice(q, k, v, None, 0.0, False, scale=1.0)
+        from torch.nn.attention import SDPBackend
+        return next(n for n, e in SDPBackend.__members__.items()
+                    if int(e.value) == int(idx))
+    except (AttributeError, ImportError, RuntimeError, StopIteration,
+            TypeError):
+        return "unknown"
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serve full-width qwen2-0.5b
 # ---------------------------------------------------------------------------
 
 
@@ -422,10 +790,22 @@ def profile_ticks(torch, eng, n):
 
 
 def kernel_kind(name):
+    """The profile's kernel groups: the port's kernels, cuBLAS matmuls
+    (``nvjet`` is cuBLAS's own kernel family), copies and dtype casts,
+    and everything else."""
+    low = name.lower()
     if "paged_decode_kernel" in name:
         return "K7 paged decode attention"
-    if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "gemv")):
+    if "routing_kernel" in name or "merge_kernel" in name:
+        return "K1 routing"
+    if "combine_kernel" in name:
+        return "K2/K3 combine"
+    if "inv_norm_kernel" in name:
+        return "K1/K2 norm pre-pass"
+    if any(t in low for t in ("gemm", "xmma", "cutlass", "gemv", "nvjet")):
         return "matmul"
+    if "copy_kernel" in low:
+        return "copies and dtype casts"
     return "other"
 
 
@@ -553,6 +933,205 @@ def phase_serve(torch, card):
     return {"paged_decode_attend": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: Soft-MoE ViT-B/16 inference at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def rel_err(torch, got, want):
+    """max |got - want| / max |want|, in f32."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def phase_vit(torch, card):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import soft_moe_apply
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.soft_moe_kernels import (
+        combine_apply,
+        combine_online,
+        routing_fwd,
+    )
+    from repro_torch.kernels.tuning import config_from_moe
+    from repro_torch.layers.mlp import experts_apply
+    from repro_torch.models import lm, vit_apply, vit_features, vit_init
+
+    cfg = get_config("soft-moe-b/16-128e")
+    n_moe = len(cfg.moe_layer_indices())
+    t0 = time.perf_counter()
+    params = vit_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[vit] {cfg.name}: {cfg.num_layers} layers ({n_moe} Soft-MoE, "
+        f"{cfg.moe.num_experts} experts x {cfg.moe.slots_per_expert} slot) "
+        f"d={cfg.d_model} ff={cfg.d_ff} heads {cfg.attention.num_heads}, "
+        f"{n_params / 1e9:.3f} B params in f32 (init "
+        f"{time.perf_counter() - t0:.1f} s), compute {cfg.dtype}")
+    batch, tokens, patch_dim = 64, cfg.frontend.num_embeds, \
+        cfg.frontend.embed_dim
+    # N(0, 1) patches, as data/pipeline.py::SyntheticImages draws them
+    patches = torch.randn(batch, tokens, patch_dim, device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(1))
+    counts = lambda: (routing_fwd.launches, combine_apply.launches,  # noqa: E731
+                      combine_online.launches)
+    with torch.inference_mode():
+        for k in (True, False):  # warm-up: allocator, cuBLAS, kernels built
+            vit_features(params, cfg, patches, use_kernel=k)
+        torch.cuda.synchronize()
+
+        # the main path: counts from 0, then n forwards on the kernel path
+        n_fwd = 10
+        routing_fwd.launches = combine_apply.launches = 0
+        combine_online.launches = 0
+        times = {True: [], False: []}
+        peak = {}
+        for k in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(n_fwd):
+                t0 = time.perf_counter()
+                logits, aux = vit_apply(params, cfg, patches, use_kernel=k)
+                torch.cuda.synchronize()
+                times[k].append(time.perf_counter() - t0)
+            peak[k] = torch.cuda.max_memory_allocated()
+            if k:
+                launches = counts()
+        log(f"[vit] launches over {n_fwd} kernel-path forwards: K1 "
+            f"{launches[0]}, K2 {launches[1]}, K3 {launches[2]} (expected "
+            f"{n_moe * n_fwd}, {n_moe * n_fwd}, 0); the einsum-path "
+            f"forwards added {counts()[0] - launches[0]} K1 launches")
+        if launches != (n_moe * n_fwd, n_moe * n_fwd, 0) or \
+                counts() != launches:
+            raise AssertionError("ViT kernel launches do not match 6 x "
+                                 "forwards for K1 and K2, 0 for K3")
+        if logits.shape != (batch, 1000) or not bool(
+                torch.isfinite(logits).all()) or float(aux) != 0.0:
+            raise AssertionError("ViT logits are not finite (64, 1000)")
+        p50 = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+        log(f"[vit] {card}: batch {batch} x {tokens} patches: kernel path "
+            f"forward p50 {p50[True]:.2f} ms = {batch / p50[True] * 1e3:.1f}"
+            f" images/s; einsum path p50 {p50[False]:.2f} ms = "
+            f"{batch / p50[False] * 1e3:.1f} images/s; peak device memory "
+            f"kernel path {peak[True] / 2**30:.3f} GiB, einsum path "
+            f"{peak[False] / 2**30:.3f} GiB (params "
+            f"{n_params * 4 / 2**30:.2f} GiB)")
+
+        # kernel path vs einsum path: pre-head features (bf16 and f32);
+        # the kernel-path forward also hands over every MoE layer's input
+        # (block_apply's call of moe_apply), so the layer check below runs
+        # on what the model feeds the first MoE layer
+        seen = []
+        inner = lm.moe_apply
+
+        def capture(p, moe_cfg, xn, *a, **kw):
+            seen.append((p, moe_cfg, xn))
+            return inner(p, moe_cfg, xn, *a, **kw)
+
+        lm.moe_apply = capture
+        try:
+            f1 = vit_features(params, cfg, patches, use_kernel=True)
+        finally:
+            lm.moe_apply = inner
+        if len(seen) != n_moe:
+            raise AssertionError(f"{len(seen)} MoE calls in a forward, "
+                                 f"expected {n_moe}")
+        f0 = vit_features(params, cfg, patches, use_kernel=False)
+        bf16_err = rel_err(torch, f1, f0)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        f1_32 = vit_features(params, cfg32, patches, use_kernel=True)
+        f0_32 = vit_features(params, cfg32, patches, use_kernel=False)
+        f32_err = rel_err(torch, f1_32, f0_32)
+
+        # one MoE layer (the first) on the input the forward gave it
+        first = cfg.moe_layer_indices()[0]
+        moe_params, moe_cfg, xn = seen[0]
+        seen.clear()
+        y1, m1 = soft_moe_apply(moe_params, moe_cfg, xn, cfg.act,
+                                use_kernel=True)
+        y0, m0 = soft_moe_apply(moe_params, moe_cfg, xn, cfg.act,
+                                use_kernel=False)
+        layer_err = rel_err(torch, y1, y0)
+        xn32 = xn.float()
+        y1_32, _ = soft_moe_apply(moe_params, moe_cfg, xn32, cfg.act,
+                                  use_kernel=True)
+        y0_32, _ = soft_moe_apply(moe_params, moe_cfg, xn32, cfg.act,
+                                  use_kernel=False)
+        layer_err32 = rel_err(torch, y1_32, y0_32)
+
+        # K3's path: the ops-level combine without saved stats, on the
+        # same layer; counts from 0
+        routing_fwd.launches = combine_apply.launches = 0
+        combine_online.launches = 0
+        kcfg = config_from_moe(moe_cfg, xn.shape[1], xn.shape[2])
+        phi_n = ops.normalized_phi(moe_params["phi"], moe_params["scale"])
+        slots, _ = ops.soft_moe_routing(xn, phi_n, kcfg)
+        n, d = moe_cfg.num_experts, cfg.d_model
+        ys = experts_apply(moe_params["experts"],
+                           slots.transpose(0, 1).contiguous(), cfg.act)
+        y3 = ops.soft_moe_combine(xn, phi_n, ys.transpose(0, 1).contiguous(),
+                                  c_stats=None, config=kcfg)
+        k3_launches = counts()
+        torch.cuda.synchronize()
+        k3_err, k3_ok = within(torch, y3, y1, 1e-5, 2.0**-7)
+    log(f"[vit] kernel vs einsum path, max|diff|/max|ref|: features bf16 "
+        f"{bf16_err:.3e} (tol 5e-2), features f32 {f32_err:.3e} (tol "
+        f"1e-4); first MoE layer (layer {first}) bf16 {layer_err:.3e} (tol "
+        f"2e-2), f32 {layer_err32:.3e} (tol 1e-4); max_combine kernel "
+        f"{float(m1['max_combine']):.6f} einsum "
+        f"{float(m0['max_combine']):.6f}")
+    log(f"[vit] K3 path (ops.soft_moe_combine without stats) on layer "
+        f"{first}: launches K1 {k3_launches[0]} K2 {k3_launches[1]} K3 "
+        f"{k3_launches[2]}; vs the layer's K2 path max_abs_err "
+        f"{k3_err:.3e} (one bf16 step: {k3_ok})")
+    if not (bf16_err <= 5e-2 and f32_err <= 1e-4 and layer_err <= 2e-2
+            and layer_err32 <= 1e-4):
+        raise AssertionError("the ViT kernel path disagrees with the einsum "
+                             "path")
+    if k3_launches != (1, 0, 1) or not k3_ok:
+        raise AssertionError("the K3 combine path failed")
+
+    # Where the time goes: 3 kernel-path forwards under the profiler
+    with torch.inference_mode():
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                vit_apply(params, cfg, patches, use_kernel=True)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+    per = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us, cnt = per.get(ev.name, (0.0, 0))
+            per[ev.name] = (us + ev.time_range.elapsed_us(), cnt + 1)
+    rows = sorted(((k, us, c) for k, (us, c) in per.items()),
+                  key=lambda r: -r[1])
+    busy = sum(us for _, us, _ in rows) / 1e6
+    log(f"[profile] vit {card}: 3 kernel-path forwards in "
+        f"{pwall * 1e3:.1f} ms wall under the profiler; device busy "
+        f"{busy * 1e3:.1f} ms = {busy / pwall:.3f} of wall")
+    kinds = {}
+    for name, us, cnt in rows:
+        k = kernel_kind(name)
+        kinds[k] = (kinds.get(k, (0.0, 0))[0] + us,
+                    kinds.get(k, (0.0, 0))[1] + cnt)
+    for k, (us, cnt) in sorted(kinds.items(), key=lambda r: -r[1][0]):
+        log(f"[profile]   {k}: {us / 1e3:.2f} ms in {cnt} launches "
+            f"({us / 1e6 / busy:.3f} of device time)")
+    for name, us, cnt in rows[:10]:
+        log(f"[profile]   top: {us / 1e3:.2f} ms x{cnt} {name[:90]}")
+    return {"routing_fwd": launches[0], "combine_apply": launches[1],
+            "combine_online": k3_launches[2]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -571,7 +1150,9 @@ def main():
         card = phase_device(torch)
         phase_build()
         kern = phase_kernels(torch)
+        kern.update(phase_soft_moe_kernels(torch))
         launches = phase_serve(torch, card)
+        launches.update(phase_vit(torch, card))
     except Exception as e:  # noqa: BLE001 — report which phase failed
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr,
               flush=True)

@@ -9,7 +9,10 @@ Slice 1 covers paged continuous-batching serving of the dense GQA
 decoders (``serve.ServeEngine(backend="paged")``), with the paged decode
 attention as a CUDA kernel written for ``sm_90a``
 (``csrc/paged_decode_attention.cu``, wrapped in
-``kernels/paged_attention.py``). Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``; on CPU tensors every kernel wrapper runs
-its plain PyTorch version.
+``kernels/paged_attention.py``). Slice 2 covers the paper's Soft-MoE ViT
+forward (``models.vit_apply`` / ``vit_features``), with the Soft-MoE
+routing and combine as CUDA kernels (``csrc/soft_moe_routing.cu``,
+``csrc/soft_moe_combine.cu``, wrapped in ``kernels/soft_moe_kernels.py``).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+on CPU tensors every kernel wrapper runs its plain PyTorch version.
 """

@@ -4,7 +4,8 @@ The port's own copy of the JAX package's config registry (plain
 dataclasses, no framework). Names accept an optional ``+soft`` suffix
 which switches the MoE variant of an assigned arch to Soft MoE (or adds
 Soft-MoE layers to a dense arch, paper placement: second half of blocks).
-The ViT table (``configs/vit.py``) is not ported yet.
+The paper's ViT table (``configs/vit.py``) is registered beside the
+assigned archs.
 """
 from __future__ import annotations
 
@@ -22,8 +23,10 @@ from .base import (  # noqa: F401
     reduced,
     shape_supported,
 )
+from .vit import PAPER_MODELS, soft_moe_vit, vit  # noqa: F401
 
 _REGISTRY = {m.name: m for m in ASSIGNED}
+_REGISTRY.update({m.name: m for m in PAPER_MODELS})
 
 ASSIGNED_NAMES = tuple(m.name for m in ASSIGNED)
 

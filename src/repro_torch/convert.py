@@ -1,11 +1,14 @@
-"""Convert the JAX package's LM parameters into the port's layout.
+"""Convert the JAX package's LM and ViT parameters into the port's layout.
 
 The JAX ``lm_init`` returns ``{"embed", "segments", "final_norm"[,
-"unembed"]}``, where ``segments[i]`` stacks the layers of one
-homogeneous run on a leading ``count`` axis (e.g. ``segments[0]["attn"]
-["wq"]`` is (L, d, H, Dk)). The port keeps one dict per layer under
-``"layers"``. This module takes that pytree with numpy leaves (the caller
-maps ``np.asarray`` over it), so it needs neither jax nor the JAX package.
+"unembed"]}`` and ``vit_init`` returns ``{"patch_proj", "pos_emb",
+"segments", "final_norm", "head"}``, where ``segments[i]`` stacks the
+layers of one homogeneous run on a leading ``count`` axis (e.g.
+``segments[0]["attn"]["wq"]`` is (L, d, H, Dk), and a Soft-MoE segment's
+``["moe"]["phi"]`` is (L, d, n, p)). The port keeps one dict per layer
+under ``"layers"``; every other entry is carried as it is. This module
+takes that pytree with numpy leaves (the caller maps ``np.asarray`` over
+it), so it needs neither jax nor the JAX package.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ def _map(tree, fn):
 
 
 def params_from_jax(tree, cfg, device="cuda"):
-    """JAX LM param pytree (numpy leaves) -> the port's params on
+    """JAX LM or ViT param pytree (numpy leaves) -> the port's params on
     ``device`` (the card unless the caller passes ``"cpu"``), dtypes kept
     as given."""
     device = resolve_device(device)

@@ -3,7 +3,8 @@
 Every ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch
 headers), so one ``nvcc`` call per source takes seconds. Libraries are
 built at first use into ``build/repro_torch/`` at the repository root
-(listed in ``.gitignore``), named by a hash of the source and the flags:
+(listed in ``.gitignore``), named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags:
 an edited source is rebuilt, an unchanged one is loaded as it is. A
 build writes a temporary file and renames it into place, so concurrent
 processes never load a half-written library.
@@ -54,6 +55,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers too: an edited header rebuilds every source
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        src += hdr.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 

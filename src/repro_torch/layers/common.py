@@ -87,6 +87,13 @@ def norm_apply(params, cfg, x: torch.Tensor, eps: float = 1e-6):
     return x * inv * params["scale"].to(dtype)
 
 
+def l2_normalize(x: torch.Tensor, axis: int, eps: float = 1e-6):
+    """Paper Algorithm 2: x / (||x|| + eps). The eps is added to the norm
+    (not a max with it), as the JAX package does."""
+    norm = torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True))
+    return x * torch.reciprocal(norm + eps)
+
+
 # --- activations ------------------------------------------------------------
 
 

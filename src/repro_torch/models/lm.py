@@ -1,11 +1,13 @@
-"""Decoder-only LM, dense GQA family, counterpart of ``repro/models/lm.py``.
+"""Decoder-only LM, dense GQA family, counterpart of ``repro/models/lm.py``;
+its transformer block also carries the Soft-MoE layers of the ViT
+(``models/vit.py``).
 
 The port runs every layer in a Python loop (the JAX package's unrolled
 serving path). Params hold one dict per layer under ``"layers"``; the
 JAX package stacks the layers of each homogeneous segment on a leading
-axis instead (``convert.params_from_jax`` splits them). MoE, SSM and
-frontend blocks, and the scan/remat training path, wait for later
-slices.
+axis instead (``convert.params_from_jax`` splits them). LMs with MoE,
+SSM or frontend blocks, and the scan/remat training path, wait for later
+slices (``check_supported``).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..core import moe_apply, moe_init, resolve_moe_cfg
 from ..layers.attention import attention_apply, attention_init
 from ..layers.common import dtype_of, norm_apply, norm_init
 from ..layers.embedding import embed, embedding_init, unembed
@@ -51,23 +54,32 @@ def check_supported(cfg):
             f"{cfg.name}: not ported yet: {', '.join(missing)}")
 
 
-def block_init(gen: torch.Generator, cfg):
+def block_init(gen: torch.Generator, cfg, is_moe: bool = False):
     d = cfg.d_model
     dev = gen.device
     p = {"norm1": norm_init(cfg, d, dev), "attn": attention_init(gen, cfg)}
-    if cfg.d_ff > 0:
+    if is_moe:
+        p["norm2"] = norm_init(cfg, d, dev)
+        p["moe"] = moe_init(gen, d, resolve_moe_cfg(cfg.moe, cfg.d_ff),
+                            cfg.mlp_style)
+    elif cfg.d_ff > 0:
         p["norm2"] = norm_init(cfg, d, dev)
         p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_style)
     return p
 
 
-def block_apply(params, cfg, x, *, is_global: bool = True, positions=None,
-                cache=None, mode: str = "train", block_tables=None,
-                paged_kernel: bool = False):
-    """Returns (y, cache). ``block_tables`` (B, blocks_per_row) switches
-    the attention cache to the paged block-pool layout; ``paged_kernel``
-    routes paged single-token decode through the paged decode-attention
-    kernel."""
+def block_apply(params, cfg, x, *, is_moe: bool = False,
+                is_global: bool = True, positions=None, cache=None,
+                mode: str = "train", use_kernel: bool = False,
+                block_tables=None, paged_kernel: bool = False):
+    """Returns (y, cache, aux). ``is_moe`` runs the block's MLP as a Soft-MoE
+    layer (``use_kernel`` routes it through the routing and combine
+    kernels); aux is its auxiliary loss (the float 0.0 otherwise, so a
+    dense block launches nothing for it). ``block_tables``
+    (B, blocks_per_row) switches the attention cache to the paged
+    block-pool layout; ``paged_kernel`` routes paged single-token decode
+    through the paged decode-attention kernel."""
+    aux = 0.0
     xn = norm_apply(params["norm1"], cfg, x)
     a_out, a_cache = attention_apply(
         params["attn"], cfg, xn, layer_is_global=is_global,
@@ -77,9 +89,16 @@ def block_apply(params, cfg, x, *, is_global: bool = True, positions=None,
     )
     x = x + a_out
     if "norm2" in params:
-        x = x + mlp_apply(params["mlp"], norm_apply(params["norm2"], cfg, x),
-                          cfg.act)
-    return x, None if cache is None else {"attn": a_cache}
+        xn = norm_apply(params["norm2"], cfg, x)
+        if is_moe:
+            m_out, metrics = moe_apply(
+                params["moe"], resolve_moe_cfg(cfg.moe, cfg.d_ff), xn,
+                cfg.act, use_kernel=use_kernel, mode=mode)
+            aux = aux + metrics["moe_aux_loss"]
+        else:
+            m_out = mlp_apply(params["mlp"], xn, cfg.act)
+        x = x + m_out
+    return x, None if cache is None else {"attn": a_cache}, aux
 
 
 def lm_init(gen: torch.Generator, cfg):
@@ -109,7 +128,7 @@ def lm_apply(params, cfg, tokens, *, positions=None, cache=None,
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     for i, p in enumerate(params["layers"]):
-        x, _ = block_apply(
+        x, _, _ = block_apply(
             p, cfg, x, is_global=cfg.attention.is_global_layer(i),
             positions=positions,
             cache=None if cache is None else cache[i], mode=mode,

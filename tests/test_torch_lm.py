@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import ASSIGNED_NAMES
+from repro.configs import ASSIGNED_NAMES, PAPER_MODELS
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
 from repro.models import lm_apply as jax_lm_apply
@@ -25,7 +25,8 @@ from repro_torch.serve.block_manager import init_paged_cache
 ATOL = 1e-4
 
 
-@pytest.mark.parametrize("name", ASSIGNED_NAMES + ("qwen2-0.5b+soft",))
+@pytest.mark.parametrize("name", ASSIGNED_NAMES + ("qwen2-0.5b+soft",)
+                         + tuple(m.name for m in PAPER_MODELS))
 def test_configs_copy_matches_jax(name):
     for red in (False, True):
         j, t = jax_get_config(name), get_config(name)

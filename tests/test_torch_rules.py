@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -35,7 +36,8 @@ def test_port_file_imports_no_jax_and_no_repro(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve, repro_torch.convert, "
-            "repro_torch.kernels.build; "
+            "repro_torch.kernels.build, repro_torch.kernels.ops, "
+            "repro_torch.models, repro_torch.core; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -68,6 +70,11 @@ def test_cuda_request_without_a_gpu_raises():
         ServeEngine(cfg, params, batch_size=2, max_len=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax(tree, cfg)
+    vcfg = reduced(get_config("soft-moe-s/16-128e"))
+    vtree = {"patch_proj": {"b": np.zeros(vcfg.d_model, np.float32)},
+             "segments": [{}, {}], "final_norm": {}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(vtree, vcfg)
     # the pool initialisers take no default device, and refuse CUDA
     for init in (init_paged_kv_cache, init_paged_cache):
         with pytest.raises(TypeError, match="device"):
@@ -90,3 +97,47 @@ def test_unported_engine_options_raise():
                         **kw)
     with pytest.raises(NotImplementedError):
         lm_init(torch.Generator(), reduced(get_config("qwen2-0.5b+soft")))
+
+
+def test_unported_moe_options_raise():
+    """The training slice's backward kernels, K6 telemetry, the sparse
+    variants and MoE LMs are not ported: each refuses, never runs half."""
+    from repro_torch.configs import MoEConfig, get_config, reduced
+    from repro_torch.core import moe_apply, moe_init, soft_moe_apply
+    from repro_torch.kernels.soft_moe_kernels import (
+        combine_apply,
+        combine_online,
+        routing_fwd,
+    )
+    from repro_torch.models import lm_init
+
+    gen = torch.Generator().manual_seed(0)
+    cfg = MoEConfig(variant="soft", num_experts=4, expert_d_ff=8)
+    params = moe_init(gen, 16, cfg)
+    x = torch.randn(2, 5, 16)
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        soft_moe_apply(params, cfg, x, telemetry=True)
+    for variant in ("tokens_choice", "experts_choice", "identity",
+                    "uniform", "soft_uniform", "uniform_soft"):
+        other = MoEConfig(variant=variant, num_experts=4, expert_d_ff=8)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            moe_init(gen, 16, other)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            moe_apply(params, other, x)
+    with pytest.raises(NotImplementedError):
+        lm_init(torch.Generator(),
+                reduced(get_config("granite-moe-1b-a400m+soft")))
+
+    # A kernel wrapper handed non-CPU tensors that need a gradient refuses
+    # before anything else (the backward kernels come later); "meta"
+    # tensors stand in for CUDA ones on a machine without a card.
+    meta = dict(device="meta")
+    xm = torch.empty(2, 8, 16, **meta).requires_grad_()
+    phi = torch.empty(16, 4, **meta)
+    ys = torch.empty(2, 4, 16, **meta)
+    stats = (torch.empty(2, 8, **meta), torch.empty(2, 8, **meta))
+    for call in (lambda: routing_fwd(xm, phi),
+                 lambda: combine_apply(xm, phi, ys, stats),
+                 lambda: combine_online(xm, phi, ys)):
+        with pytest.raises(NotImplementedError, match="training slice"):
+            call()
