@@ -28,7 +28,17 @@ prints no result line):
    computes its main output (the library yardstick) and the port's
    unfused einsum path of the same function, and reads each one's peak
    device memory above its inputs.
-5. serve: full-width qwen2-0.5b (24 layers, random weights from a seeded
+5. soft-moe backward kernels: holds K4 (dispatch backward) and K5
+   (combine backward) against their plain PyTorch versions on the card at
+   the B/16 layer in bf16 and f32, a ragged case (m = 45, d = 264, S = 40,
+   also at 16 x 8 blocks) and L/16's d = 1024, with the forward residuals
+   from K1 and K2; checks that dX and dYs of a batched call equal batch-1
+   calls bitwise, that dPhi_n equals the row-order sum of the batch-1
+   dPhi_n's and is bitwise the same over two runs, and that malformed
+   operands raise; then times each kernel beside its bound, its plain
+   version, the backward of the ``scaled_dot_product_attention`` call of
+   phase 4 (the library yardstick) and the einsum path's backward.
+6. serve: full-width qwen2-0.5b (24 layers, random weights from a seeded
    generator, bf16 compute) answers 16 greedy requests through
    ``ServeEngine(backend="paged")``; the kernel's launch count must equal
    decode steps x 24. A second kernel engine then runs the same requests,
@@ -36,7 +46,7 @@ prints no result line):
    tick beside a gather-path engine (``use_kernel=False``), teacher
    forced: the logits of every decoding row at every tick are held
    against the gather engine's.
-6. vit: full-width, full-depth soft-moe-b/16-128e (random f32 weights from
+7. vit: full-width, full-depth soft-moe-b/16-128e (random f32 weights from
    a seeded generator, bf16 compute) classifies a batch of 64 images
    through ``vit_apply`` / ``vit_features`` on the kernel path and on the
    einsum path under ``torch.inference_mode()``: K1 and K2 must launch 6
@@ -48,6 +58,18 @@ prints no result line):
    K3 runs on the ops-level path that combines without saved stats
    (``kernels.ops.soft_moe_combine(..., c_stats=None)``), driven on one
    MoE layer and held against the layer's kernel path.
+8. train: full-width, full-depth soft-moe-b/16-128e training steps through
+   ``train.make_train_step`` (batch 64 of ``data.SyntheticImages``, bf16
+   compute, f32 params and AdamW moments, remat as the config sets it,
+   the optimizer of ``examples/train_vit_softmoe.py``): the step-0 loss
+   is ln 1000 (the head starts at zero); K1 and K2 launch 12 times a step
+   and K4 and K5 6 times; at step 1 the kernel path's gradients of every
+   MoE layer's phi and scale and of one expert leaf are held against the
+   einsum path's in bf16 and in f32, and one MoE layer's whole gradient
+   in f32; then the step time p50 over 7 steps, images/s, peak device
+   memory, a profiled step, and a checkpoint round trip of one MoE
+   layer's train state through ``checkpoint.CheckpointManager``, restored
+   bitwise.
 
 The lines before the last carry the numbers: the card line as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -56,6 +78,7 @@ it, and one JSON object ``{"kernels": [...]}``. The last line is
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -92,6 +115,16 @@ KERNEL_SOURCES = {
         "route": "cuda",
         "source": "src/repro_torch/csrc/soft_moe_combine.cu",
         "replaces": "src/repro/kernels/soft_moe_kernels.py:462",
+    },
+    "dispatch_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/soft_moe_dispatch_bwd.cu",
+        "replaces": "src/repro/kernels/soft_moe_kernels.py:529",
+    },
+    "combine_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/soft_moe_combine_bwd.cu",
+        "replaces": "src/repro/kernels/soft_moe_kernels.py:658",
     },
 }
 
@@ -133,9 +166,36 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s wall")
     for name, r in res.items():
         log(f"[build] {name}: {r['seconds']:.2f} s -> {r['path']}")
+        fn = ""
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build]   {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = kernel_label(line)
+            elif "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build]   {fn}: {line.strip()}")
+
+
+def kernel_label(line):
+    """'name<bf16|f32, d-chunk>' from ptxas's 'Compiling entry function'
+    line (a mangled name: the kernel's identifier, then its template
+    arguments: the element type and, for the Soft-MoE kernels, the
+    chunk's 128-column count)."""
+    import re
+
+    mangled = line.split("'")[1] if "'" in line else line
+    names = []  # length-prefixed identifiers: <n><n characters>
+    for m in re.finditer(r"(?<![0-9])(\d+)", mangled):
+        n = int(m.group(1))
+        names.append(mangled[m.end():m.end() + n])
+    label = next((x for x in names if x.endswith("_kernel")), mangled[:48])
+    args = []
+    if "__nv_bfloat16" in mangled:
+        args.append("bf16")
+    elif re.search(r"_kernelIf", mangled):
+        args.append("f32")
+    nv = re.search(r"Li(\d+)E", mangled)
+    if nv and not label.startswith("paged"):  # K7's is the head dim
+        args.append(f"d-chunk {128 * int(nv.group(1))}")
+    return label + (f"<{', '.join(args)}>" if args else "")
 
 
 # ---------------------------------------------------------------------------
@@ -504,7 +564,8 @@ def phase_soft_moe_kernels(torch):
                                                   main["c_stats"][1])),
              ValueError, "stats of the wrong shape"),
             (lambda: routing_fwd(x, phi_n.clone().requires_grad_()),
-             NotImplementedError, "phi_n requires grad (no backward yet)")):
+             NotImplementedError, "phi_n requires grad (a raw kernel has no "
+             "backward)")):
         try:
             call()
         except exc as e:
@@ -670,7 +731,302 @@ def sdp_backend(torch, q, k, v):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serve full-width qwen2-0.5b
+# phase 5: the Soft-MoE backward kernels (K4, K5) against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def soft_moe_bwd_bounds(x, s, kind):
+    """Least time on the card for one backward call: the bytes the kernel's
+    own operands must move (x, Phi_n, the gradient, the stats and the
+    sigma / rho row terms in; dX, dPhi_n and, for K5, Ys in and dYs out)
+    over HBM bandwidth vs the least f32 flops, 10 m S d a row (the logits,
+    x . g or g . Ys, and three products), over the f32 rate."""
+    b, m, d = x.shape
+    el = x.element_size()
+    tokens, slots, phi = b * m * d * el, b * s * d * el, d * s * 4
+    if kind == "dispatch":  # x, g_slots in; dx out; stats and sigma (b, S)
+        nbytes = 2 * tokens + slots + 2 * phi + 3 * b * s * 4
+    else:  # x, g, ys in; dx, dys out; stats and rho (b, m)
+        nbytes = 3 * tokens + 2 * slots + 2 * phi + 3 * b * m * 4
+    flops = b * 10 * m * s * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def bwd_case(torch, seed, b, m, d, s, dtype, cfg):
+    """The backward kernels' operands on the card: the forward's residuals
+    from K1 and K2 (slots, both stats pairs, y) and random gradients."""
+    from repro_torch.kernels.soft_moe_kernels import combine_apply, routing_fwd
+
+    x, phi_n, ys = soft_moe_case(torch, seed, b, m, d, s, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    g_slots = torch.randn(b, s, d, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(b, m, d, generator=gen, device="cuda").to(dtype)
+    with torch.no_grad():
+        slots, d_stats, c_stats = routing_fwd(x, phi_n, cfg)
+        y = combine_apply(x, phi_n, ys, c_stats, cfg)
+    return dict(x=x, phi_n=phi_n, ys=ys, g_slots=g_slots, g=g, slots=slots,
+                d_stats=d_stats, c_stats=c_stats, y=y)
+
+
+def phase_soft_moe_bwd_kernels(torch):
+    from repro_torch.core.soft_moe import soft_moe_weights
+    from repro_torch.kernels.soft_moe_kernels import (
+        combine_bwd,
+        combine_bwd_ref,
+        dispatch_bwd,
+        dispatch_bwd_ref,
+    )
+    from repro_torch.kernels.tuning import KernelConfig, d_chunk
+
+    # Tolerances, on max |got - want| / max |want| per output: f32 within
+    # 1e-5 (the two sides sum in other orders); bf16 outputs elementwise
+    # within one bf16 step of the plain version's, 2^-7 |want|, plus the
+    # f32 tolerance 1e-5 max |want| (both sides agree in f32, then round;
+    # an element that cancels to near 0 keeps only the f32 agreement).
+    # dPhi_n is f32 in every case.
+    cases = [
+        # (label, b, m, d, S, dtype, cfg); m = 196 is not a multiple of
+        # the 32-token block
+        ("B/16 layer bf16", 64, 196, 768, 128, torch.bfloat16, None),
+        ("B/16 layer f32", 64, 196, 768, 128, torch.float32, None),
+        # 264 of a 384-column chunk's columns lie inside d; a ragged
+        # last slot block (40 = 32 + 8) and token block (45 = 32 + 13)
+        ("ragged m45 d264 S40 f32", 3, 45, 264, 40, torch.float32, None),
+        ("ragged m45 d264 S40 bf16 bt16 bs8", 3, 45, 264, 40,
+         torch.bfloat16, KernelConfig(block_tokens=16, block_slots=8)),
+        # L/16's width: two 768-column chunks
+        ("L/16 layer d1024 bf16", 8, 196, 1024, 128, torch.bfloat16, None),
+    ]
+
+    def check(got, want, dt):
+        diff = (got.float() - want.float()).abs()
+        top = want.float().abs().max()
+        rel = (diff.max() / top).item()
+        if got.dtype == torch.float32 or dt == torch.float32:
+            return diff.max().item(), rel, rel <= 1e-5
+        ok = bool((diff <= 2.0**-7 * want.float().abs() + 1e-5 * top).all())
+        return diff.max().item(), rel, ok
+
+    main = {}
+    for i, (label, b, m, d, s, dt, kcfg) in enumerate(cases):
+        c = bwd_case(torch, 300 + i, b, m, d, s, dt, kcfg)
+        args4 = (c["x"], c["phi_n"], c["g_slots"], c["d_stats"], c["slots"])
+        args5 = (c["x"], c["phi_n"], c["ys"], c["g"], c["c_stats"], c["y"])
+        dx4, dphi4 = dispatch_bwd(*args4, kcfg)
+        dx5, dphi5, dys5 = combine_bwd(*args5, kcfg)
+        torch.cuda.synchronize()
+        r4 = dispatch_bwd_ref(*args4, kcfg)
+        r5 = combine_bwd_ref(*args5, kcfg)
+        errs, oks = {}, []
+        for name, got, want in (("K4 dx", dx4, r4[0]), ("K4 dphi", dphi4, r4[1]),
+                                ("K5 dx", dx5, r5[0]), ("K5 dphi", dphi5, r5[1]),
+                                ("K5 dys", dys5, r5[2])):
+            abs_err, errs[name], ok = check(got, want, dt)
+            errs[name + " abs"] = abs_err
+            oks.append(ok)
+        outs = (dx4, dphi4, dx5, dphi5, dys5)
+        finite = all(bool(torch.isfinite(t).all()) for t in outs)
+        # row independence: dx and dys of each row equal a batch-1 call
+        # bitwise; dPhi_n equals the row-order sum of the batch-1 dPhi_n's
+        bitwise, acc4, acc5 = True, None, None
+        for r in range(b):
+            sl = slice(r, r + 1)
+            one4 = (c["x"][sl], c["phi_n"], c["g_slots"][sl],
+                    tuple(t[sl] for t in c["d_stats"]), c["slots"][sl])
+            one5 = (c["x"][sl], c["phi_n"], c["ys"][sl], c["g"][sl],
+                    tuple(t[sl] for t in c["c_stats"]), c["y"][sl])
+            rx4, rp4 = dispatch_bwd(*one4, kcfg)
+            rx5, rp5, ry5 = combine_bwd(*one5, kcfg)
+            bitwise &= (torch.equal(rx4[0], dx4[r]) and torch.equal(rx5[0], dx5[r])
+                        and torch.equal(ry5[0], dys5[r]))
+            acc4 = rp4 if acc4 is None else acc4 + rp4
+            acc5 = rp5 if acc5 is None else acc5 + rp5
+        row_sum = torch.equal(acc4, dphi4) and torch.equal(acc5, dphi5)
+        again4 = dispatch_bwd(*args4, kcfg)
+        again5 = combine_bwd(*args5, kcfg)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b_) for a, b_ in zip(again4 + again5, outs))
+        log(f"[softmoe-bwd] {label}: b={b} m={m} d={d} S={s} "
+            f"{str(dt).replace('torch.', '')} d_chunk={d_chunk(d)} "
+            "max|diff|/max|ref|: "
+            + " ".join(f"{k}={v:.3e}" for k, v in errs.items()
+                       if not k.endswith("abs"))
+            + f" (tol f32 1e-5 of max|ref|; bf16 one bf16 step + 1e-5 of "
+            f"max|ref|: {all(oks)}); finite={finite} "
+            f"batched==batch1_bitwise={bitwise} "
+            f"dphi==row_order_sum_of_batch1={row_sum} "
+            f"second_run_bitwise={same}")
+        if not (all(oks) and finite and bitwise and row_sum and same):
+            raise AssertionError(f"soft-moe backward kernels {label} failed")
+        if i == 0:
+            main = {"case": c,
+                    "err": {"dispatch_bwd": max(errs["K4 dx abs"],
+                                                errs["K4 dphi abs"]),
+                            "combine_bwd": max(errs["K5 dx abs"],
+                                               errs["K5 dphi abs"],
+                                               errs["K5 dys abs"])}}
+
+    # No fallback: malformed operands raise and launch nothing.
+    c = main["case"]
+    x, phi_n, g_slots, g = c["x"], c["phi_n"], c["g_slots"], c["g"]
+    counts = lambda: (dispatch_bwd.launches, combine_bwd.launches)  # noqa: E731
+    before = counts()
+    for call, exc, why in (
+            (lambda: dispatch_bwd(x.half(), phi_n, g_slots.half(),
+                                  c["d_stats"], c["slots"]), TypeError,
+             "float16 x"),
+            (lambda: dispatch_bwd(x, phi_n, g_slots.float(), c["d_stats"],
+                                  c["slots"]), TypeError,
+             "g_slots dtype != x dtype"),
+            (lambda: combine_bwd(x, phi_n, c["ys"],
+                                 g.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), c["c_stats"], c["y"]),
+             ValueError, "non-contiguous g"),
+            (lambda: combine_bwd(x, phi_n, c["ys"], g,
+                                 (c["c_stats"][0][:, :5], c["c_stats"][1]),
+                                 c["y"]), ValueError,
+             "stats of the wrong shape"),
+            (lambda: dispatch_bwd(x, phi_n, g_slots, c["d_stats"], c["slots"],
+                                  KernelConfig(block_slots=64)), ValueError,
+             "block_slots=64 > 32"),
+            (lambda: combine_bwd(x, phi_n, c["ys"], g.clone()
+                                 .requires_grad_(), c["c_stats"], c["y"]),
+             NotImplementedError, "g requires grad (a raw kernel has no "
+             "backward)")):
+        try:
+            call()
+        except exc as e:
+            log(f"[softmoe-bwd] malformed operands ({why}) raise "
+                f"{type(e).__name__}: {e}")
+        else:
+            raise AssertionError(f"malformed operands ({why}) did not raise")
+    if counts() != before:
+        raise AssertionError("a malformed call launched a kernel")
+
+    # Times at the B/16 layer's shapes (b=64, m=196, d=768, S=128, bf16).
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    b, m, d = x.shape
+    s = phi_n.shape[1]
+    args4 = (x, phi_n, g_slots, c["d_stats"], c["slots"])
+    args5 = (x, phi_n, c["ys"], g, c["c_stats"], c["y"])
+    calls = {
+        "dispatch_bwd": (lambda: dispatch_bwd(*args4),
+                         lambda: dispatch_bwd_ref(*args4), "dispatch"),
+        "combine_bwd": (lambda: combine_bwd(*args5),
+                        lambda: combine_bwd_ref(*args5), "combine"),
+    }
+    # The library yardstick: the backward alone of the
+    # scaled_dot_product_attention call that computes each forward
+    # (dispatch: q = Phi_n^T, k = l2norm(x), v = x; combine: q = l2norm(x),
+    # k = Phi_n^T, v = Ys; scale 1; Phi_n in x's dtype), as
+    # torch.autograd.grad over a retained graph given the same output
+    # gradient; the forward runs outside the timed window.
+    xf = x.float()
+    xn = (xf / (xf.norm(dim=-1, keepdim=True) + 1e-6)).to(x.dtype)
+    phi_t = phi_n.t().contiguous().to(x.dtype)[None, None]
+    layouts = {"broadcast": lambda t: t.expand(b, 1, s, d),
+               "copied": lambda t: t.expand(b, 1, s, d).contiguous()}
+    library = {
+        "dispatch": sdpa_bwd_options(
+            torch, {k: (f(phi_t), xn[:, None], x[:, None])
+                    for k, f in layouts.items()}, g_slots[:, None], flush),
+        "combine": sdpa_bwd_options(
+            torch, {k: (xn[:, None], f(phi_t), c["ys"][:, None])
+                    for k, f in layouts.items()}, g[:, None], flush),
+    }
+    for kind, (runs, refused) in library.items():
+        log(f"[softmoe-bwd] sdpa backward for {kind} (b=64 m=196 d=768 "
+            f"S=128 bf16): runs: "
+            + "; ".join(f"{k} {ms:.4f} ms" for k, ms in runs.items())
+            + "; refused: "
+            + "; ".join(f"{k}: {why}" for k, why in refused.items()))
+
+    # The port's einsum path of the same functions (use_kernel=False in
+    # core/soft_moe.py), its backward alone over a retained graph.
+    def einsum_bwd(kind):
+        xe = x.detach().requires_grad_()
+        phie = phi_n.reshape(d, s, 1).detach().requires_grad_()
+        one = torch.ones((), device="cuda")
+        if kind == "dispatch":
+            d_w, _ = soft_moe_weights(xe, phie, one)
+            out = torch.einsum("bmd,bmnp->bnpd", xe.float(), d_w).to(x.dtype)
+            grad, wrt = g_slots.reshape(b, s, 1, d), (xe, phie)
+        else:
+            yse = c["ys"].detach().requires_grad_()
+            _, c_w = soft_moe_weights(xe, phie, one)
+            out = torch.einsum("bnpd,bmnp->bmd",
+                               yse.float().reshape(b, s, 1, d),
+                               c_w).to(x.dtype)
+            grad, wrt = g, (xe, phie, yse)
+        return lambda: torch.autograd.grad(out, wrt, grad, retain_graph=True)
+
+    out = {}
+    for name, (kern, plain, kind) in calls.items():
+        kernel_ms = time_ms(torch, kern, flush=flush)
+        plain_ms = time_ms(torch, plain, reps=3, flush=flush)
+        einsum_ms = time_ms(torch, einsum_bwd(kind), flush=flush)
+        runs = library[kind][0]
+        label, library_ms = min(runs.items(), key=lambda r: r[1])
+        bound_ms, bound_by, nbytes, flops = soft_moe_bwd_bounds(x, s, kind)
+        log(f"[softmoe-bwd] {name} timing (b=64 m=196 d=768 S=128 bf16, L2 "
+            f"flushed): kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} (scaled_dot_product_attention "
+            f"backward, {label}) einsum_path_bwd_ms={einsum_ms:.4f} "
+            f"bound={bound_ms * 1e3:.2f} us ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> "
+            f"{flops / kernel_ms / 1e9:.2f} TFLOP/s of the least work")
+        out[name] = {"max_abs_err": main["err"][name], "ms": kernel_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "einsum_path_ms": einsum_ms}
+    return out
+
+
+def sdpa_bwd_options(torch, operands, grad_out, flush):
+    """Time the backward of one scaled_dot_product_attention call (scale
+    1) on each operand layout in ``operands`` ({layout: (q, k, v)}) under
+    each backend that takes it: the forward builds a graph from leaf
+    copies of the operands, and the timed call is ``torch.autograd.grad``
+    of its output given ``grad_out``, over the retained graph. Returns
+    ({"BACKEND, layout": ms}, {"BACKEND, layout": why it refused})."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    runs, refused = {}, {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        for layout, qkv in operands.items():
+            key = f"{be.name}, {layout}"
+            leaves = [t.detach().requires_grad_() for t in qkv]
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    with sdpa_kernel([be]):
+                        out = sdpa(*leaves, scale=1.0)
+
+                    def bwd(out=out, leaves=leaves):
+                        return torch.autograd.grad(out, leaves, grad_out,
+                                                   retain_graph=True)
+
+                    bwd()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    why = [str(w.message).split(" (Triggered internally")[0]
+                           for w in caught]
+                    why = [w for w in why if not w.endswith("because:")]
+                    refused[key] = " | ".join(why or [str(e)])[:400]
+                    continue
+            runs[key] = time_ms(torch, bwd, flush=flush)
+            del out
+    return runs, refused
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serve full-width qwen2-0.5b
 # ---------------------------------------------------------------------------
 
 
@@ -796,6 +1152,12 @@ def kernel_kind(name):
     low = name.lower()
     if "paged_decode_kernel" in name:
         return "K7 paged decode attention"
+    if "dispatch_bwd" in name:
+        return "K4 dispatch backward"
+    if "combine_bwd" in name:
+        return "K5 combine backward"
+    if "norms_kernel" in name or "dphi_reduce_kernel" in name:
+        return "K4/K5 norm pre-pass and dPhi_n row sum"
     if "routing_kernel" in name or "merge_kernel" in name:
         return "K1 routing"
     if "combine_kernel" in name:
@@ -815,13 +1177,14 @@ def phase_serve(torch, card):
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_decode_attend
     from repro_torch.models import lm_init
+    from repro_torch.optim import tree_leaves
     from repro_torch.serve import Request, ServeEngine
 
     cfg = get_config("qwen2-0.5b")
     t0 = time.perf_counter()
     params = lm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     log(f"[serve] {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
         f"ff={cfg.d_ff} heads {cfg.attention.num_heads}/"
         f"{cfg.attention.num_kv_heads} vocab {cfg.vocab_size}, "
@@ -934,7 +1297,7 @@ def phase_serve(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: Soft-MoE ViT-B/16 inference at full width and depth
+# phase 7: Soft-MoE ViT-B/16 inference at full width and depth
 # ---------------------------------------------------------------------------
 
 
@@ -958,13 +1321,14 @@ def phase_vit(torch, card):
     from repro_torch.kernels.tuning import config_from_moe
     from repro_torch.layers.mlp import experts_apply
     from repro_torch.models import lm, vit_apply, vit_features, vit_init
+    from repro_torch.optim import tree_leaves
 
     cfg = get_config("soft-moe-b/16-128e")
     n_moe = len(cfg.moe_layer_indices())
     t0 = time.perf_counter()
     params = vit_init(torch.Generator(device="cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     log(f"[vit] {cfg.name}: {cfg.num_layers} layers ({n_moe} Soft-MoE, "
         f"{cfg.moe.num_experts} experts x {cfg.moe.slots_per_expert} slot) "
         f"d={cfg.d_model} ff={cfg.d_ff} heads {cfg.attention.num_heads}, "
@@ -1132,15 +1496,286 @@ def phase_vit(torch, card):
             "combine_online": k3_launches[2]}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+# ---------------------------------------------------------------------------
+# phase 8: Soft-MoE ViT-B/16 training steps at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def phase_train(torch, card):
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import soft_moe_apply
+    from repro_torch.data import SyntheticImages
+    from repro_torch.kernels.soft_moe_kernels import (
+        combine_apply,
+        combine_bwd,
+        combine_online,
+        dispatch_bwd,
+        routing_fwd,
+    )
+    from repro_torch.models import lm, vit_init, vit_loss
+    from repro_torch.optim import OptimizerConfig, tree_leaves, tree_map
+    from repro_torch.train import init_train_state, make_train_step
+
+    kernels = (routing_fwd, combine_apply, combine_online, dispatch_bwd,
+               combine_bwd)
+
+    def counts():
+        return tuple(k.launches for k in kernels)
+
+    def zero_counts():
+        for k in kernels:
+            k.launches = 0
+
+    # earlier phases leave reference cycles (engines whose methods the
+    # teacher-forced check patched) that hold device memory until collected
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("soft-moe-b/16-128e")
+    n_moe = len(cfg.moe_layer_indices())
+    batch = 64
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             lambda g: vit_init(g, cfg))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    data = SyntheticImages(num_patches=cfg.frontend.num_embeds,
+                           patch_dim=cfg.frontend.embed_dim,
+                           batch_size=batch, num_classes=1000, device="cuda")
+    # examples/train_vit_softmoe.py's optimizer, at its default 300 steps
+    ocfg = OptimizerConfig(peak_lr=3e-3, warmup_steps=20, schedule="rsqrt",
+                           timescale=100.0, total_steps=300,
+                           cooldown_steps=30)
+    step_fn = make_train_step(
+        lambda p, b: vit_loss(p, cfg, b, use_kernel=True), ocfg)
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers ({n_moe} Soft-MoE), "
+        f"remat={cfg.remat}, {n_params / 1e9:.3f} B params; f32 params, "
+        f"AdamW mu and nu (init {time.perf_counter() - t0:.1f} s), "
+        f"compute {cfg.dtype}, batch {batch}")
+
+    # step 0: the head starts at zero, so the loss is ln(1000)
+    zero_counts()
+    state, m0 = step_fn(state, data.batch(0))
+    loss0 = float(m0["total_loss"])
+    per_step = counts()
+    want = (2 * n_moe, 2 * n_moe, 0, n_moe, n_moe)
+    log(f"[train] step 0: loss {loss0:.6f} (ln 1000 = {math.log(1000):.6f}, "
+        f"tol 1e-3); grad_norm {float(m0['grad_norm']):.4f} lr "
+        f"{float(m0['lr']):.3e}; launches K1 {per_step[0]} K2 {per_step[1]} "
+        f"K3 {per_step[2]} K4 {per_step[3]} K5 {per_step[4]} (expected "
+        f"{want}: remat runs each MoE layer's forward twice)")
+    if abs(loss0 - math.log(1000)) > 1e-3 or per_step != want:
+        raise AssertionError("train step 0 failed")
+
+    # step 1: kernel-path vs einsum-path gradients of the MoE layers' phi
+    # and scale and of one expert leaf, with the head trained one step, in
+    # the config's bf16 compute and in f32. Bound: 5e-2 of the leaf's
+    # largest value in bf16 (PR 12's feature bound: the einsum path
+    # normalizes x in bf16, the kernels in f32, so a logit moves by ~2^-9,
+    # and each of the up to 12 blocks the gradient crosses adds bf16
+    # roundings of up to 2^-8), 1e-4 in f32 (sums in other orders). A scale
+    # gradient is one number, sum_{d,s} dPhi_n * Phi_n / scale over d S
+    # terms of both signs: its error is bounded against the terms, so its
+    # bound is the leaf bound times kappa = sum |terms| / |sum terms|,
+    # measured from the kernel path's dPhi_n.
+    from repro_torch.kernels import ops as kops
+
+    first = cfg.moe_layer_indices()[0]
+    b1 = data.batch(1)
+    picks = [(f"layers[{i}].moe.{k}", ("layers", i, "moe", k))
+             for i in cfg.moe_layer_indices() for k in ("phi", "scale")]
+    picks.append((f"layers[{first}].moe.experts.w_up",
+                  ("layers", first, "moe", "experts", "w_up")))
+
+    def pick_grads(cfg_, use_kernel):
+        wrt = tree_map(torch.Tensor.detach, state["params"])
+        leaves = [_get(wrt, path) for _, path in picks]
+        for t in leaves:
+            t.requires_grad_()
+        kappa, real = {}, kops.normalized_phi
+
+        def spy(phi, scale):  # dPhi_n of each layer, kernel path
+            out = real(phi, scale)
+            if out.requires_grad:
+                def hook(g, key=phi.data_ptr(), o=out.detach()):
+                    t = (g.float() * o.float()).double()
+                    kappa.setdefault(key, (t.abs().sum()
+                                           / t.sum().abs()).item())
+                out.register_hook(hook)
+            return out
+
+        kops.normalized_phi = spy
+        try:
+            loss, _ = vit_loss(wrt, cfg_, b1, use_kernel=use_kernel)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            kops.normalized_phi = real
+        return grads, kappa
+
+    phi_key = {i: state["params"]["layers"][i]["moe"]["phi"].data_ptr()
+               for i in cfg.moe_layer_indices()}
+    grad_check = {}
+    for label, cfg_, tol in (("bf16", cfg, 5e-2),
+                             ("f32", dataclasses.replace(cfg,
+                                                         dtype="float32"),
+                              1e-4)):
+        (gk, kappa), (ge, _) = pick_grads(cfg_, True), pick_grads(cfg_, False)
+        rows = []
+        for (name, path), a, b_ in zip(picks, gk, ge):
+            err = rel_err(torch, a, b_)
+            k = kappa[phi_key[path[1]]] if path[-1] == "scale" else 1.0
+            rows.append((name, err, tol * k))
+        del gk, ge
+        grad_check[label] = rows
+        log(f"[train] step 1, kernel vs einsum path gradients in {label}, "
+            f"max|diff| / max|ref| (bound): "
+            + " ".join(f"{n}={e:.3e} ({b_:.1e})" for n, e, b_ in rows))
+    bad = [(lab, n) for lab, rows in grad_check.items()
+           for n, e, b_ in rows if not e <= b_]
+
+    # one MoE layer in f32, its input captured from the model's forward
+    seen = []
+    inner = lm.moe_apply
+
+    def capture(p, moe_cfg, xn, *a, **kw):
+        seen.append((p, moe_cfg, xn))
+        return inner(p, moe_cfg, xn, *a, **kw)
+
+    lm.moe_apply = capture
+    try:
+        with torch.no_grad():
+            vit_loss(state["params"], cfg, b1, use_kernel=True)
+    finally:
+        lm.moe_apply = inner
+    moe_params, moe_cfg, xn = seen[0]
+    seen.clear()
+    w = torch.randn(xn.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+
+    def layer_grads(use_kernel):
+        p = tree_map(torch.Tensor.detach, moe_params)
+        leaves = list(tree_leaves(p))
+        xin = xn.float().requires_grad_()
+        for t in leaves:
+            t.requires_grad_()
+        y, _ = soft_moe_apply(p, moe_cfg, xin, cfg.act,
+                              use_kernel=use_kernel)
+        return torch.autograd.grad((y * w).sum(), leaves + [xin])
+
+    lk, le = layer_grads(True), layer_grads(False)
+    layer_err = max(rel_err(torch, a, b_) for a, b_ in zip(lk, le))
+    del lk, le
+    log(f"[train] step 1, layer {first} alone in f32 on its captured "
+        f"input, every param and the input: kernel vs einsum path "
+        f"max|diff| / max|ref| {layer_err:.3e} (tol 1e-4)")
+    if bad or layer_err > 1e-4:
+        raise AssertionError(f"kernel-path gradients disagree with the "
+                             f"einsum path: {bad}")
+
+    # the main path: counts from 0, then timed steps
+    n_steps = 7
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times, losses = [], []
+    for step in range(1, 1 + n_steps):
+        b = data.batch(step)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        losses.append(float(m["total_loss"]))  # host sync on the step
+        times.append(time.perf_counter() - t0)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    p50 = statistics.median(times)
+    log(f"[train] {card}: steps 1-{n_steps}: step p50 {p50 * 1e3:.2f} ms "
+        f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = "
+        f"{batch / p50:.1f} images/s; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; peak device memory {peak / 2**30:.3f} GiB "
+        f"(params + AdamW moments {3 * n_params * 4 / 2**30:.2f} GiB); "
+        f"launches K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} K4 "
+        f"{launches[3]} K5 {launches[4]} (= {n_steps} x {want})")
+    if launches != tuple(n_steps * c for c in want):
+        raise AssertionError("train-step launches do not match 12 K1, 12 "
+                             "K2, 6 K4 and 6 K5 a step")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite training loss")
+
+    # Where the time goes: one profiled step
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b = data.batch(1 + n_steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        float(m["total_loss"])
+        pwall = time.perf_counter() - t0
+    per = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us, cnt = per.get(ev.name, (0.0, 0))
+            per[ev.name] = (us + ev.time_range.elapsed_us(), cnt + 1)
+    rows = sorted(((k, us, c) for k, (us, c) in per.items()),
+                  key=lambda r: -r[1])
+    busy = sum(us for _, us, _ in rows) / 1e6
+    log(f"[profile] train {card}: one step in {pwall * 1e3:.1f} ms wall "
+        f"under the profiler; device busy {busy * 1e3:.1f} ms = "
+        f"{busy / pwall:.3f} of wall")
+    kinds = {}
+    for name, us, cnt in rows:
+        k = kernel_kind(name)
+        kinds[k] = (kinds.get(k, (0.0, 0))[0] + us,
+                    kinds.get(k, (0.0, 0))[1] + cnt)
+    for k, (us, cnt) in sorted(kinds.items(), key=lambda r: -r[1][0]):
+        log(f"[profile]   {k}: {us / 1e3:.2f} ms in {cnt} launches "
+            f"({us / 1e6 / busy:.3f} of device time)")
+    for name, us, cnt in rows[:10]:
+        log(f"[profile]   top: {us / 1e3:.2f} ms x{cnt} {name[:90]}")
+
+    # The closing save: the train state of the first MoE layer (params,
+    # AdamW moments, step), through CheckpointManager, restored bitwise
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    part = {"params": state["params"]["layers"][first],
+            "opt": {"mu": state["opt"]["mu"]["layers"][first],
+                    "nu": state["opt"]["nu"]["layers"][first],
+                    "step": state["opt"]["step"]}}
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(part))
+    mgr = CheckpointManager(str(ckpt_dir), keep=1)
+    step = int(state["opt"]["step"])
+    t0 = time.perf_counter()
+    mgr.save(step, part, blocking=True)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = mgr.restore(mgr.latest_step(), part)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    same = all(a.dtype == b_.dtype and a.device == b_.device
+               and torch.equal(a, b_)
+               for a, b_ in zip(tree_leaves(back), tree_leaves(part)))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"[train] checkpoint of layer {first}'s train state at step {step}: "
+        f"{nbytes / 1e9:.3f} GB saved in {t_save:.2f} s "
+        f"({nbytes / 1e9 / t_save:.2f} GB/s), restored in {t_restore:.2f} s "
+        f"({nbytes / 1e9 / t_restore:.2f} GB/s); bitwise equal: {same}; the "
+        f"whole state, {3 * n_params * 4 / 1e9:.1f} GB, would take "
+        f"~{3 * n_params * 4 / (nbytes / t_save):.0f} s to save at this rate")
+    if not same:
+        raise AssertionError("checkpoint round trip is not bitwise")
+    del state, back, part
+    torch.cuda.empty_cache()
+    return {"dispatch_bwd": launches[3], "combine_bwd": launches[4]}
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def main():
@@ -1151,8 +1786,10 @@ def main():
         phase_build()
         kern = phase_kernels(torch)
         kern.update(phase_soft_moe_kernels(torch))
+        kern.update(phase_soft_moe_bwd_kernels(torch))
         launches = phase_serve(torch, card)
         launches.update(phase_vit(torch, card))
+        launches.update(phase_train(torch, card))
     except Exception as e:  # noqa: BLE001 — report which phase failed
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr,
               flush=True)

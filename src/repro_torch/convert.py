@@ -1,4 +1,5 @@
-"""Convert the JAX package's LM and ViT parameters into the port's layout.
+"""Convert the JAX package's LM and ViT parameters, and a ViT train state,
+into the port's layout.
 
 The JAX ``lm_init`` returns ``{"embed", "segments", "final_norm"[,
 "unembed"]}`` and ``vit_init`` returns ``{"patch_proj", "pos_emb",
@@ -50,3 +51,20 @@ def params_from_jax(tree, cfg, device="cuda"):
            for k, v in tree.items() if k != "segments"}
     out["layers"] = layers
     return out
+
+
+def train_state_from_jax(state, cfg, device="cuda"):
+    """JAX train state ``{"params", "opt": {"mu", "nu", "step"}}`` (numpy
+    leaves) -> the port's, on ``device``: params and both moments through
+    :func:`params_from_jax`, the step as an int32 scalar."""
+    device = resolve_device(device)
+    opt = state["opt"]
+    return {
+        "params": params_from_jax(state["params"], cfg, device),
+        "opt": {
+            "mu": params_from_jax(opt["mu"], cfg, device),
+            "nu": params_from_jax(opt["nu"], cfg, device),
+            "step": torch.tensor(int(np.asarray(opt["step"])),
+                                 dtype=torch.int32, device=device),
+        },
+    }

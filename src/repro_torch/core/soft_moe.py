@@ -9,9 +9,10 @@ counterpart of ``repro/core/soft_moe.py``:
 ``use_kernel=False`` is the einsum path, which materializes the (m x S)
 weights; ``use_kernel=True`` routes dispatch and combine through the CUDA
 kernels K1 and K2 (``kernels/ops.py``; their plain versions on CPU
-tensors), which never write them to device memory. Both softmaxes
-normalize within one sequence, so a row's output does not depend on how
-it is batched.
+tensors), which never write them to device memory, and whose autograd
+Functions run the backward kernels K4 and K5. Both softmaxes normalize
+within one sequence, so a row's output does not depend on how it is
+batched.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Soft-MoE routing and combine: the CUDA kernels' wrappers and their plain
-versions, counterpart of ``repro/kernels/soft_moe_kernels.py`` (Pallas
-kernels for the TPU), forward only.
+"""Soft-MoE routing and combine, forward and backward: the CUDA kernels'
+wrappers and their plain versions, counterpart of
+``repro/kernels/soft_moe_kernels.py`` (Pallas kernels for the TPU).
 
 - K1 ``routing_fwd`` (``csrc/soft_moe_routing.cu``; replaces
   ``routing_fwd_pallas``): one logits pass ``l2norm(X) . Phi_n`` gives the
@@ -11,6 +11,12 @@ kernels for the TPU), forward only.
 - K3 ``combine_online`` (same source; replaces ``combine_online_pallas``):
   the combine with an online softmax over slots, which also returns
   (c_mx, c_den).
+- K4 ``dispatch_bwd`` (``csrc/soft_moe_dispatch_bwd.cu``; replaces
+  ``dispatch_bwd_pallas``): dX and dPhi_n from the slots' gradient, with
+  the dispatch weights recomputed from K1's saved stats.
+- K5 ``combine_bwd`` (``csrc/soft_moe_combine_bwd.cu``; replaces
+  ``combine_bwd_pallas``): dX, dPhi_n and dYs from the output's gradient,
+  with the combine weights recomputed from the saved per-token stats.
 - ``dispatch_2d`` / ``combine_2d``: single-sequence wrappers on K1 / K3
   (``dispatch_pallas`` / ``combine_pallas`` in the JAX package).
 
@@ -19,14 +25,17 @@ first use and called through ctypes; each source's header says what
 bounds it and how it is laid out. Each wrapper runs its plain version
 (``*_ref``) for CPU tensors and, for CUDA tensors, launches its kernel
 or raises: there is no fallback. ``<wrapper>.launches`` counts kernel
-launches (never plain runs). The backward kernels (K4, K5) come with
-the training slice: until then a CUDA wrapper refuses inputs that would
-need a gradient.
+launches (never plain runs). A raw kernel has no backward of its own: a
+CUDA wrapper refuses inputs that would need a gradient, and the
+differentiable entry points are the ``torch.autograd.Function``s of
+``kernels/ops.py``, whose backward calls K4 and K5.
 
 The plain versions repeat the kernels' tile recurrences in PyTorch, with
 ``block_tokens`` / ``block_slots`` from the ``KernelConfig``, so the CPU
 tests can pin them to the JAX kernels' tiling. Each batch row runs on its
-own, so row i of a batch equals that row run alone, bitwise.
+own, so row i of a batch equals that row run alone, bitwise; dPhi_n, the
+one output that sums over rows, is the sum of the rows' own partials in
+row order, as the CUDA kernels form it.
 """
 from __future__ import annotations
 
@@ -185,28 +194,175 @@ def combine_online_ref(x, phi_n, ys, cfg: Optional[KernelConfig] = None):
     return y.to(x.dtype), (cmx, cden)
 
 
+def _l2n_bwd(xf, rn, dxn):
+    """VJP of the L2 norm at raw tokens xf (n, d) f32, given d(l2norm x)
+    (n, d) and rn = 1 / (||x|| + eps), as the TPU kernels' ``_l2n_bwd``."""
+    n = torch.sqrt((xf * xf).sum(-1))
+    inv_n = torch.where(n > 0, 1.0 / torch.clamp(n, min=_EPS),
+                        torch.zeros_like(n))
+    proj = (xf * dxn).sum(-1)
+    return rn[:, None] * dxn - (rn * rn * inv_n * proj)[:, None] * xf
+
+
+def _row_sum(parts):
+    """Per-row partials summed in row order from 0, as the kernels'
+    second pass sums them."""
+    acc = torch.zeros_like(parts[0])
+    for p in parts:
+        acc = acc + p
+    return acc
+
+
+def _dispatch_bwd_row(xf, phi, gf, dmx, dden, sig, bt, bs):
+    """K4's recurrences for one row: (dx (m, d), dPhi_n partial (d, S))."""
+    m, s = xf.shape[0], phi.shape[1]
+    rn = _inv_norm(xf)
+
+    def tile(t0, s0):
+        xt, ph = xf[t0:t0 + bt], phi[:, s0:s0 + bs]
+        d_w = torch.exp(_logits(xt, rn[t0:t0 + bt], ph)
+                        - dmx[None, s0:s0 + bs]) / dden[None, s0:s0 + bs]
+        g = gf[s0:s0 + bs]
+        d_lg = d_w * (xt @ g.T - sig[None, s0:s0 + bs])
+        return d_w, d_lg, g, ph
+
+    dx = []
+    for t0 in range(0, m, bt):  # token-major, slot blocks inner
+        acc_raw = torch.zeros(min(bt, m - t0), xf.shape[1], device=xf.device)
+        acc_n = torch.zeros_like(acc_raw)
+        for s0 in range(0, s, bs):
+            d_w, d_lg, g, ph = tile(t0, s0)
+            acc_raw = acc_raw + d_w @ g
+            acc_n = acc_n + d_lg @ ph.T
+        dx.append(acc_raw + _l2n_bwd(xf[t0:t0 + bt], rn[t0:t0 + bt], acc_n))
+    dphi = []
+    for s0 in range(0, s, bs):  # slot-major, token blocks inner
+        acc_p = torch.zeros(xf.shape[1], min(bs, s - s0), device=xf.device)
+        for t0 in range(0, m, bt):
+            d_lg = tile(t0, s0)[1]
+            xn = xf[t0:t0 + bt] * rn[t0:t0 + bt, None]
+            acc_p = acc_p + xn.T @ d_lg
+        dphi.append(acc_p)
+    return torch.cat(dx), torch.cat(dphi, dim=1)
+
+
+def _check_shapes(*named):
+    """Raise on any (name, tensor, expected shape) that does not match."""
+    for name, t, shape in named:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != {shape}")
+
+
+def dispatch_bwd_ref(x, phi_n, g_slots, d_stats, slots,
+                     cfg: Optional[KernelConfig] = None):
+    """Plain version of K4: ``(dx (b, m, d) in x's dtype, dphi_n (d, S) in
+    phi_n's dtype)`` from the slots' gradient g_slots (b, S, d), the
+    forward's slots (b, S, d) and its per-slot (d_mx, d_den) (b, S)."""
+    b, m, d, s = _shapes(x, phi_n, g_slots)
+    _check_shapes(("slots", slots, (b, s, d)),
+               ("d_stats[0]", d_stats[0], (b, s)),
+               ("d_stats[1]", d_stats[1], (b, s)))
+    cfg = _resolve(cfg, m, d, s)
+    phi = phi_n.float()
+    dmx, dden = (t.float() for t in d_stats)
+    # sigma_s = g_s . slots_s: the softmax-VJP row term, outside the kernel
+    sigma = (g_slots.float() * slots.float()).sum(-1)
+    if not b:
+        return torch.zeros_like(x), torch.zeros_like(phi_n)
+    rows = [_dispatch_bwd_row(x[i].float(), phi, g_slots[i].float(), dmx[i],
+                              dden[i], sigma[i], cfg.block_tokens,
+                              cfg.block_slots) for i in range(b)]
+    dx = torch.stack([r[0] for r in rows])
+    dphi = _row_sum([r[1] for r in rows])
+    return dx.to(x.dtype), dphi.to(phi_n.dtype)
+
+
+def _combine_bwd_row(xf, phi, ysf, gf, cmx, cden, rho, bt, bs):
+    """K5's recurrences for one row: (dx (m, d), dPhi_n partial (d, S),
+    dys (S, d))."""
+    m, s = xf.shape[0], phi.shape[1]
+    rn = _inv_norm(xf)
+
+    def tile(t0, s0):
+        xt, ph = xf[t0:t0 + bt], phi[:, s0:s0 + bs]
+        c_w = torch.exp(_logits(xt, rn[t0:t0 + bt], ph)
+                        - cmx[t0:t0 + bt, None]) / cden[t0:t0 + bt, None]
+        g = gf[t0:t0 + bt]
+        d_lg = c_w * (g @ ysf[s0:s0 + bs].T - rho[t0:t0 + bt, None])
+        return c_w, d_lg, g, ph
+
+    dx = []
+    for t0 in range(0, m, bt):  # token-major, slot blocks inner
+        acc_n = torch.zeros(min(bt, m - t0), xf.shape[1], device=xf.device)
+        for s0 in range(0, s, bs):
+            _, d_lg, _, ph = tile(t0, s0)
+            acc_n = acc_n + d_lg @ ph.T
+        dx.append(_l2n_bwd(xf[t0:t0 + bt], rn[t0:t0 + bt], acc_n))
+    dys, dphi = [], []
+    for s0 in range(0, s, bs):  # slot-major, token blocks inner
+        ns = min(bs, s - s0)
+        acc_y = torch.zeros(ns, xf.shape[1], device=xf.device)
+        acc_p = torch.zeros(xf.shape[1], ns, device=xf.device)
+        for t0 in range(0, m, bt):
+            c_w, d_lg, g, _ = tile(t0, s0)
+            acc_y = acc_y + c_w.T @ g
+            xn = xf[t0:t0 + bt] * rn[t0:t0 + bt, None]
+            acc_p = acc_p + xn.T @ d_lg
+        dys.append(acc_y)
+        dphi.append(acc_p)
+    return torch.cat(dx), torch.cat(dphi, dim=1), torch.cat(dys)
+
+
+def combine_bwd_ref(x, phi_n, ys, g, c_stats, y,
+                    cfg: Optional[KernelConfig] = None):
+    """Plain version of K5: ``(dx (b, m, d) in x's dtype, dphi_n (d, S) in
+    phi_n's dtype, dys (b, S, d) in ys' dtype)`` from the output's
+    gradient g (b, m, d), the forward's output y (b, m, d) and the
+    per-token (c_mx, c_den) (b, m)."""
+    b, m, d, s = _shapes(x, phi_n, ys)
+    _check_shapes(("g", g, (b, m, d)), ("y", y, (b, m, d)),
+               ("c_stats[0]", c_stats[0], (b, m)),
+               ("c_stats[1]", c_stats[1], (b, m)))
+    cfg = _resolve(cfg, m, d, s)
+    phi = phi_n.float()
+    cmx, cden = (t.float() for t in c_stats)
+    # rho_t = g_t . y_t: the softmax-VJP row term, outside the kernel
+    rho = (g.float() * y.float()).sum(-1)
+    rows = [_combine_bwd_row(x[i].float(), phi, ys[i].float(), g[i].float(),
+                             cmx[i], cden[i], rho[i], cfg.block_tokens,
+                             cfg.block_slots) for i in range(b)]
+    if not b:
+        return (torch.zeros_like(x), torch.zeros_like(phi_n),
+                torch.zeros_like(ys))
+    dx, dys = (torch.stack([r[k] for r in rows]) for k in (0, 2))
+    dphi = _row_sum([r[1] for r in rows])
+    return dx.to(x.dtype), dphi.to(phi_n.dtype), dys.to(ys.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
 
 def _refuse_grad(*tensors):
-    """The kernels have no backward yet: refuse inputs that need one,
-    rather than return an output that silently has no gradient."""
+    """A raw kernel has no backward: refuse inputs that need one, rather
+    than return an output that silently has no gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "the Soft-MoE CUDA kernels have no backward yet (K4/K5 come "
-            "with the training slice): call them under torch.no_grad() or "
-            "torch.inference_mode(), or on CPU tensors")
+            "a raw Soft-MoE CUDA kernel has no backward: differentiate "
+            "through the autograd Functions of kernels/ops.py "
+            "(soft_moe_routing, soft_moe_combine), or call the kernel under "
+            "torch.no_grad() or torch.inference_mode()")
 
 
-def _check_cuda(cfg: KernelConfig, x, phi_n, ys=None, stats=()):
-    """Raise on what the kernels do not take; they launch on x's device."""
+def _check_cuda(cfg: KernelConfig, x, phi_n, rows=None, stats=()):
+    """Raise on what the kernels do not take; they launch on x's device.
+    ``rows``: {name: tensor} of (., ., d) operands in x's dtype (ys, the
+    gradients), which the kernels also load in 16-byte vectors."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    named = {"x": x, "phi_n": phi_n}
-    if ys is not None:
-        named["ys"] = ys
+    rows = dict(rows or {})
+    named = {"x": x, "phi_n": phi_n, **rows}
     named.update({f"stats[{i}]": t for i, t in enumerate(stats)})
     for name, t in named.items():
         if t.device != x.device:
@@ -215,17 +371,18 @@ def _check_cuda(cfg: KernelConfig, x, phi_n, ys=None, stats=()):
             raise ValueError(f"{name} must be contiguous")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"x dtype {x.dtype} not in {list(_DTYPE_CODE)}")
-    if ys is not None and ys.dtype != x.dtype:
-        raise TypeError(f"ys dtype {ys.dtype} != x dtype {x.dtype}")
+    for name, t in rows.items():
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != x dtype {x.dtype}")
     for name, t in named.items():
-        if name != "x" and name != "ys" and t.dtype != torch.float32:
+        if name != "x" and name not in rows and t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
     d = x.shape[-1]
     if d % 8:
         raise ValueError(f"d={d} is not a multiple of 8: the kernels load "
                          f"x and ys rows in vectors of 4 (16-byte aligned)")
-    for name in ("x", "ys"):
-        if name in named and named[name].data_ptr() % 16:
+    for name in ("x", *rows):
+        if named[name].data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     for name, blk in (("block_tokens", cfg.block_tokens),
                       ("block_slots", cfg.block_slots)):
@@ -327,7 +484,7 @@ def combine_apply(x, phi_n, ys, c_stats, cfg: Optional[KernelConfig] = None):
     if x.device.type == "cpu":
         return combine_apply_ref(x, phi_n, ys, c_stats, cfg)
     _refuse_grad(x, phi_n, ys, *c_stats)
-    _check_cuda(cfg, x, phi_n, ys, tuple(c_stats))
+    _check_cuda(cfg, x, phi_n, {"ys": ys}, tuple(c_stats))
     y = _combine_cuda(x, phi_n, ys, tuple(c_stats), cfg)[0]
     combine_apply.launches += 1
     return y
@@ -345,13 +502,103 @@ def combine_online(x, phi_n, ys, cfg: Optional[KernelConfig] = None):
     if x.device.type == "cpu":
         return combine_online_ref(x, phi_n, ys, cfg)
     _refuse_grad(x, phi_n, ys)
-    _check_cuda(cfg, x, phi_n, ys)
+    _check_cuda(cfg, x, phi_n, {"ys": ys})
     out = _combine_cuda(x, phi_n, ys, None, cfg)
     combine_online.launches += 1
     return out
 
 
 combine_online.launches = 0
+
+
+def dispatch_bwd(x, phi_n, g_slots, d_stats, slots,
+                 cfg: Optional[KernelConfig] = None):
+    """K4: ``(dx (b, m, d) in x's dtype, dphi_n (d, S) f32)``, the
+    gradients of K1's slots through x and phi_n, given the slots' gradient
+    g_slots (b, S, d) and the forward's slots (b, S, d) and per-slot
+    ``d_stats = (d_mx, d_den)`` (b, S) f32. CPU tensors run
+    ``dispatch_bwd_ref``; CUDA tensors launch the kernel on the current
+    stream or raise."""
+    b, m, d, s = _shapes(x, phi_n, g_slots)
+    _check_shapes(("slots", slots, (b, s, d)),
+                  ("d_stats[0]", d_stats[0], (b, s)),
+                  ("d_stats[1]", d_stats[1], (b, s)))
+    cfg = _resolve(cfg, m, d, s)
+    if x.device.type == "cpu":
+        return dispatch_bwd_ref(x, phi_n, g_slots, d_stats, slots, cfg)
+    _refuse_grad(x, phi_n, g_slots, slots, *d_stats)
+    _check_cuda(cfg, x, phi_n, {"g_slots": g_slots}, tuple(d_stats))
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    # sigma_s = g_s . slots_s: the softmax-VJP row term, O(S d), outside
+    # the kernel as in the JAX wrapper
+    sigma = (g_slots.float() * slots.float()).sum(-1)
+    dx = torch.empty_like(x)
+    dphi = torch.empty((d, s), **f32)
+    rn, inv_n = torch.empty((b, m), **f32), torch.empty((b, m), **f32)
+    part = torch.empty((b, s, d), **f32)
+    fn = _launcher("soft_moe_dispatch_bwd", "soft_moe_dispatch_bwd_launch",
+                   11, 8)
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), phi_n.data_ptr(), g_slots.data_ptr(),
+                 d_stats[0].data_ptr(), d_stats[1].data_ptr(),
+                 sigma.data_ptr(), dx.data_ptr(), dphi.data_ptr(),
+                 rn.data_ptr(), inv_n.data_ptr(), part.data_ptr(),
+                 _DTYPE_CODE[x.dtype], b, m, d, s, cfg.block_tokens,
+                 cfg.block_slots, d_chunk(d), _stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"soft_moe_dispatch_bwd launch failed: cudaError {err}")
+    dispatch_bwd.launches += 1
+    return dx, dphi
+
+
+dispatch_bwd.launches = 0
+
+
+def combine_bwd(x, phi_n, ys, g, c_stats, y,
+                cfg: Optional[KernelConfig] = None):
+    """K5: ``(dx (b, m, d) in x's dtype, dphi_n (d, S) f32, dys (b, S, d)
+    in ys' dtype)``, the gradients of the combine through x, phi_n and ys,
+    given the output's gradient g (b, m, d), the forward's output y
+    (b, m, d) and the per-token ``c_stats = (c_mx, c_den)`` (b, m) f32.
+    CPU tensors run ``combine_bwd_ref``; CUDA tensors launch the kernel on
+    the current stream or raise."""
+    b, m, d, s = _shapes(x, phi_n, ys)
+    _check_shapes(("g", g, (b, m, d)), ("y", y, (b, m, d)),
+                  ("c_stats[0]", c_stats[0], (b, m)),
+                  ("c_stats[1]", c_stats[1], (b, m)))
+    cfg = _resolve(cfg, m, d, s)
+    if x.device.type == "cpu":
+        return combine_bwd_ref(x, phi_n, ys, g, c_stats, y, cfg)
+    _refuse_grad(x, phi_n, ys, g, y, *c_stats)
+    _check_cuda(cfg, x, phi_n, {"ys": ys, "g": g}, tuple(c_stats))
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    # rho_t = g_t . y_t: the softmax-VJP row term, O(m d), outside the
+    # kernel as in the JAX wrapper
+    rho = (g.float() * y.float()).sum(-1)
+    dx, dys = torch.empty_like(x), torch.empty_like(ys)
+    dphi = torch.empty((d, s), **f32)
+    rn, inv_n = torch.empty((b, m), **f32), torch.empty((b, m), **f32)
+    part = torch.empty((b, s, d), **f32)
+    fn = _launcher("soft_moe_combine_bwd", "soft_moe_combine_bwd_launch",
+                   13, 8)
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), phi_n.data_ptr(), ys.data_ptr(), g.data_ptr(),
+                 c_stats[0].data_ptr(), c_stats[1].data_ptr(),
+                 rho.data_ptr(), dx.data_ptr(), dphi.data_ptr(),
+                 dys.data_ptr(), rn.data_ptr(), inv_n.data_ptr(),
+                 part.data_ptr(), _DTYPE_CODE[x.dtype], b, m, d, s,
+                 cfg.block_tokens, cfg.block_slots, d_chunk(d), _stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"soft_moe_combine_bwd launch failed: cudaError {err}")
+    combine_bwd.launches += 1
+    return dx, dphi, dys
+
+
+combine_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------

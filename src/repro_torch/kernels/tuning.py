@@ -1,7 +1,8 @@
 """Tile policy of the port's kernels on Hopper, counterpart of
 ``repro/kernels/tuning.py``.
 
-Soft-MoE kernels (K1 routing, K2/K3 combine; kernels/soft_moe_kernels.py):
+Soft-MoE kernels (K1 routing, K2/K3 combine, K4/K5 their backward;
+kernels/soft_moe_kernels.py):
 ``block_tokens`` and ``block_slots`` have the JAX fields' meaning (the
 token and slot blocks of the online softmaxes), so a test can pin the
 plain versions to the TPU kernel's tiling. The CUDA kernels hold a

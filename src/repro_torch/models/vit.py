@@ -6,7 +6,12 @@ a linear head.
 
 Params hold one dict per layer under ``"layers"`` and the port runs them
 in a Python loop (the JAX package scans each segment of stacked layers;
-``convert.params_from_jax`` splits them). Two traits of the reference
+``convert.params_from_jax`` splits them). With ``cfg.remat`` (the config
+default) ``vit_apply`` runs each block under activation checkpointing
+when a gradient is being recorded, as the JAX ``vit_apply`` wraps its scan
+body in ``jax.checkpoint``: the backward keeps only the blocks' inputs
+and recomputes each block's forward, Soft-MoE kernels included.
+``vit_features`` does not remat, as in JAX. Two traits of the reference
 are kept, because the port is held to it: attention applies RoPE to q/k
 on top of the learned ``pos_emb`` (``layers/attention.py::gqa_apply``),
 and the head starts at zero.
@@ -14,6 +19,7 @@ and the head starts at zero.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..layers.common import (
     dtype_of,
@@ -47,7 +53,7 @@ def vit_init(gen: torch.Generator, cfg, num_classes: int = 1000):
     }
 
 
-def _encode(params, cfg, patches, use_kernel: bool):
+def _encode(params, cfg, patches, use_kernel: bool, remat: bool):
     """patches -> (final-normed tokens (B, m, d), summed aux loss)."""
     dt = dtype_of(cfg.dtype)
     x = patches.to(dt) @ params["patch_proj"]["w"].to(dt)
@@ -55,9 +61,15 @@ def _encode(params, cfg, patches, use_kernel: bool):
     x = x + params["pos_emb"].to(dt)
     moe_idx = set(cfg.moe_layer_indices())
     aux = torch.zeros((), device=x.device)
+    remat = remat and torch.is_grad_enabled()
     for i, p in enumerate(params["layers"]):
-        x, _, a = block_apply(p, cfg, x, is_moe=i in moe_idx, mode="train",
-                              use_kernel=use_kernel)
+        def body(h, p=p, is_moe=i in moe_idx):
+            y, _, a = block_apply(p, cfg, h, is_moe=is_moe, mode="train",
+                                  use_kernel=use_kernel)
+            return y, a
+
+        x, a = (checkpoint(body, x, use_reentrant=False) if remat
+                else body(x))
         aux = aux + a
     return norm_apply(params["final_norm"], cfg, x), aux
 
@@ -65,7 +77,7 @@ def _encode(params, cfg, patches, use_kernel: bool):
 def vit_apply(params, cfg, patches, use_kernel: bool = False):
     """patches: (B, num_patches, patch_dim) -> ((B, num_classes) f32
     logits, aux loss)."""
-    x, aux = _encode(params, cfg, patches, use_kernel)
+    x, aux = _encode(params, cfg, patches, use_kernel, cfg.remat)
     pooled = x.mean(dim=1).float()
     logits = pooled @ params["head"]["w"].float() + params["head"]["b"]
     return logits, aux
@@ -85,4 +97,4 @@ def vit_loss(params, cfg, batch, use_kernel: bool = False):
 
 def vit_features(params, cfg, patches, use_kernel: bool = False):
     """Mean-pooled pre-head features (B, d) in the compute dtype."""
-    return _encode(params, cfg, patches, use_kernel)[0].mean(dim=1)
+    return _encode(params, cfg, patches, use_kernel, False)[0].mean(dim=1)

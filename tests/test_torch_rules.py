@@ -37,7 +37,8 @@ def test_port_file_imports_no_jax_and_no_repro(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve, repro_torch.convert, "
             "repro_torch.kernels.build, repro_torch.kernels.ops, "
-            "repro_torch.models, repro_torch.core; "
+            "repro_torch.models, repro_torch.core, repro_torch.train, "
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -75,6 +76,14 @@ def test_cuda_request_without_a_gpu_raises():
              "segments": [{}, {}], "final_norm": {}}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax(vtree, vcfg)
+    from repro_torch.convert import train_state_from_jax
+    from repro_torch.data import SyntheticImages
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_state_from_jax({"params": vtree, "opt": {
+            "mu": vtree, "nu": vtree, "step": np.int32(0)}}, vcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyntheticImages(num_patches=4, patch_dim=8, batch_size=2)
     # the pool initialisers take no default device, and refuse CUDA
     for init in (init_paged_kv_cache, init_paged_cache):
         with pytest.raises(TypeError, match="device"):
@@ -100,8 +109,9 @@ def test_unported_engine_options_raise():
 
 
 def test_unported_moe_options_raise():
-    """The training slice's backward kernels, K6 telemetry, the sparse
-    variants and MoE LMs are not ported: each refuses, never runs half."""
+    """K6 telemetry, the sparse variants and MoE LMs are not ported, and a
+    raw kernel has no backward of its own (the autograd Functions of
+    kernels/ops.py carry the gradient): each refuses, never runs half."""
     from repro_torch.configs import MoEConfig, get_config, reduced
     from repro_torch.core import moe_apply, moe_init, soft_moe_apply
     from repro_torch.kernels.soft_moe_kernels import (
@@ -129,8 +139,8 @@ def test_unported_moe_options_raise():
                 reduced(get_config("granite-moe-1b-a400m+soft")))
 
     # A kernel wrapper handed non-CPU tensors that need a gradient refuses
-    # before anything else (the backward kernels come later); "meta"
-    # tensors stand in for CUDA ones on a machine without a card.
+    # before anything else (differentiate through kernels/ops.py instead);
+    # "meta" tensors stand in for CUDA ones on a machine without a card.
     meta = dict(device="meta")
     xm = torch.empty(2, 8, 16, **meta).requires_grad_()
     phi = torch.empty(16, 4, **meta)
@@ -139,5 +149,5 @@ def test_unported_moe_options_raise():
     for call in (lambda: routing_fwd(xm, phi),
                  lambda: combine_apply(xm, phi, ys, stats),
                  lambda: combine_online(xm, phi, ys)):
-        with pytest.raises(NotImplementedError, match="training slice"):
+        with pytest.raises(NotImplementedError, match="kernels/ops.py"):
             call()
