@@ -21,24 +21,37 @@ prints no result line):
    card at the Soft-MoE B/16 layer's shapes and at ragged ones (a token
    count that is not a multiple of the token block, the S/14-256E shape
    over several slot blocks, a single row, f32 inputs, a d narrower
-   than its chunk, L/16's d = 1024 over two d-chunks), checks batched ==
+   than its chunk, L/16's d = 1024 over two d-chunks, the granite LM
+   layer's m = 2048, d = 1024, S = 32), checks batched ==
    batch-1 bitwise, that K2 on K1's stats agrees with K3 and K3's stats
    with K1's, and that malformed operands raise; then times each kernel,
    its plain version, one ``scaled_dot_product_attention`` call that
    computes its main output (the library yardstick) and the port's
    unfused einsum path of the same function, and reads each one's peak
-   device memory above its inputs.
+   device memory above its inputs; K1 and K2 are also timed at the
+   granite layer's shapes.
 5. soft-moe backward kernels: holds K4 (dispatch backward) and K5
    (combine backward) against their plain PyTorch versions on the card at
    the B/16 layer in bf16 and f32, a ragged case (m = 45, d = 264, S = 40,
-   also at 16 x 8 blocks) and L/16's d = 1024, with the forward residuals
+   also at 16 x 8 blocks), L/16's d = 1024 and the granite layer (m =
+   2048, d = 1024, S = 32), with the forward residuals
    from K1 and K2; checks that dX and dYs of a batched call equal batch-1
    calls bitwise, that dPhi_n equals the row-order sum of the batch-1
    dPhi_n's and is bitwise the same over two runs, and that malformed
    operands raise; then times each kernel beside its bound, its plain
    version, the backward of the ``scaled_dot_product_attention`` call of
-   phase 4 (the library yardstick) and the einsum path's backward.
-6. serve: full-width qwen2-0.5b (24 layers, random weights from a seeded
+   phase 4 (the library yardstick) and the einsum path's backward; both
+   are also timed at the granite layer's shapes.
+6. routing health: holds K6 (the Fig. 9 routing-health reductions from
+   K1's saved stats) against its plain PyTorch version and against the
+   chunked oracle ``core.inspection.routing_health_from_stats`` on the
+   card at the granite-moe-1b-a400m+soft layer (b = 8, m = 2048, d = 1024,
+   S = 32) and the B/16 layer, in bf16 and f32, and at a ragged case over
+   several slot blocks; checks batched == batch-1 and run-to-run bitwise
+   and that malformed operands raise; then times the kernel beside its
+   bound, its plain version and the einsum path of the same reductions
+   (no single PyTorch call computes them).
+7. serve: full-width qwen2-0.5b (24 layers, random weights from a seeded
    generator, bf16 compute) answers 16 greedy requests through
    ``ServeEngine(backend="paged")``; the kernel's launch count must equal
    decode steps x 24. A second kernel engine then runs the same requests,
@@ -46,7 +59,7 @@ prints no result line):
    tick beside a gather-path engine (``use_kernel=False``), teacher
    forced: the logits of every decoding row at every tick are held
    against the gather engine's.
-7. vit: full-width, full-depth soft-moe-b/16-128e (random f32 weights from
+8. vit: full-width, full-depth soft-moe-b/16-128e (random f32 weights from
    a seeded generator, bf16 compute) classifies a batch of 64 images
    through ``vit_apply`` / ``vit_features`` on the kernel path and on the
    einsum path under ``torch.inference_mode()``: K1 and K2 must launch 6
@@ -58,7 +71,7 @@ prints no result line):
    K3 runs on the ops-level path that combines without saved stats
    (``kernels.ops.soft_moe_combine(..., c_stats=None)``), driven on one
    MoE layer and held against the layer's kernel path.
-8. train: full-width, full-depth soft-moe-b/16-128e training steps through
+9. train: full-width, full-depth soft-moe-b/16-128e training steps through
    ``train.make_train_step`` (batch 64 of ``data.SyntheticImages``, bf16
    compute, f32 params and AdamW moments, remat as the config sets it,
    the optimizer of ``examples/train_vit_softmoe.py``): the step-0 loss
@@ -70,6 +83,20 @@ prints no result line):
    memory, a profiled step, and a checkpoint round trip of one MoE
    layer's train state through ``checkpoint.CheckpointManager``, restored
    bitwise.
+10. lm train: full-width, full-depth granite-moe-1b-a400m+soft (24 Soft-MoE
+   layers of 32 one-slot experts, random f32 weights from a seeded
+   generator, bf16 compute, f32 AdamW moments, remat and scan_layers as
+   the config sets them) trains on batch 8 x 2048 tokens of
+   ``data.SyntheticLM`` through ``lm_loss(use_kernel=True,
+   telemetry=True)``, ``make_train_step`` and the ``Trainer``, which logs
+   the flattened telemetry every step: at step 0 the kernel path's loss
+   and every layer's telemetry are held against the einsum path's in
+   bf16, and one MoE layer's telemetry in f32; the launches a step must
+   be K1 48, K2 48, K4 24, K5 24, K6 24 (one a MoE layer: the remat
+   recompute takes no telemetry) and K3 0; then step p50, tokens/s and
+   peak memory over 7 Trainer steps (which end in a save of the whole
+   train state), step p50 with telemetry on and off in turns, and a
+   profiled step with K6's share of device time.
 
 The lines before the last carry the numbers: the card line as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -126,6 +153,11 @@ KERNEL_SOURCES = {
         "source": "src/repro_torch/csrc/soft_moe_combine_bwd.cu",
         "replaces": "src/repro/kernels/soft_moe_kernels.py:658",
     },
+    "routing_health": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/soft_moe_routing_health.cu",
+        "replaces": "src/repro/kernels/soft_moe_kernels.py:294",
+    },
 }
 
 
@@ -176,23 +208,26 @@ def phase_build():
 
 def kernel_label(line):
     """'name<bf16|f32, d-chunk>' from ptxas's 'Compiling entry function'
-    line (a mangled name: the kernel's identifier, then its template
-    arguments: the element type and, for the Soft-MoE kernels, the
-    chunk's 128-column count)."""
+    line (a mangled name: its nested identifiers, each prefixed by its
+    length, then its template arguments: the element type and, for the
+    Soft-MoE kernels, the chunk's 128-column count)."""
     import re
 
     mangled = line.split("'")[1] if "'" in line else line
-    names = []  # length-prefixed identifiers: <n><n characters>
-    for m in re.finditer(r"(?<![0-9])(\d+)", mangled):
-        n = int(m.group(1))
-        names.append(mangled[m.end():m.end() + n])
+    names, pos = [], 2 + (mangled[2:3] == "N")  # after _Z or _ZN
+    while pos < len(mangled) and mangled[pos].isdigit():
+        digits = re.match(r"\d+", mangled[pos:]).group()
+        n = int(digits)
+        names.append(mangled[pos + len(digits):pos + len(digits) + n])
+        pos += len(digits) + n
     label = next((x for x in names if x.endswith("_kernel")), mangled[:48])
+    rest = mangled[pos:]
     args = []
-    if "__nv_bfloat16" in mangled:
+    if "__nv_bfloat16" in rest:
         args.append("bf16")
-    elif re.search(r"_kernelIf", mangled):
+    elif rest.startswith("If"):
         args.append("f32")
-    nv = re.search(r"Li(\d+)E", mangled)
+    nv = re.search(r"Li(\d+)E", rest)
     if nv and not label.startswith("paged"):  # K7's is the head dim
         args.append(f"d-chunk {128 * int(nv.group(1))}")
     return label + (f"<{', '.join(args)}>" if args else "")
@@ -473,8 +508,11 @@ def phase_soft_moe_kernels(torch):
         ("ragged m45 d264 S40 f32", 3, 45, 264, 40, torch.float32, None),
         # L/16's width: two 768-column chunks, each recomputing the logits
         ("L/16 layer d1024 bf16", 8, 196, 1024, 128, torch.bfloat16, None),
+        # granite-moe-1b-a400m+soft's layer at seq 2048: 64 token blocks,
+        # one slot block, two d-chunks
+        ("granite layer bf16", 8, 2048, 1024, 32, torch.bfloat16, None),
     ]
-    main = {}
+    main, granite = {}, None
     for i, (label, b, m, d, s, dt, kcfg) in enumerate(cases):
         x, phi_n, ys = soft_moe_case(torch, 100 + i, b, m, d, s, dt)
         atol, rtol = tol[dt]
@@ -527,6 +565,8 @@ def phase_soft_moe_kernels(torch):
             f"finite={finite} batched==batch1_bitwise={bitwise}")
         if not (all(oks) and finite and bitwise):
             raise AssertionError(f"soft-moe kernels {label} failed")
+        if label.startswith("granite"):
+            granite = (x, phi_n, ys, c_stats)
         if i == 0:
             main = {"args": (x, phi_n, ys), "c_stats": c_stats,
                     "err": {"routing_fwd": max(errs[k] for k in errs
@@ -677,6 +717,23 @@ def phase_soft_moe_kernels(torch):
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
                      "einsum_path_ms": einsum_ms}
+
+    # K1 and K2 at the granite layer's shapes, as the LM training phase
+    # runs them (b=8, m=2048, d=1024, S=32, bf16): 16 CTAs for K1's main
+    # kernel, two d-chunks
+    gx, gphi, gys, gstats = granite
+    for name, kern, kind in (
+            ("routing_fwd", lambda: routing_fwd(gx, gphi), "routing"),
+            ("combine_apply", lambda: combine_apply(gx, gphi, gys, gstats),
+             "combine")):
+        bound_ms, bound_by, nbytes, flops = soft_moe_bounds(
+            gx, gphi.shape[1], kind)
+        ms = time_ms(torch, kern, flush=flush)
+        log(f"[softmoe] {name} timing at the granite layer (b=8 m=2048 "
+            f"d=1024 S=32 bf16, L2 flushed): kernel_ms={ms:.4f} "
+            f"bound={bound_ms * 1e3:.2f} us ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> "
+            f"{flops / ms / 1e9:.2f} TFLOP/s")
     return out
 
 
@@ -798,6 +855,8 @@ def phase_soft_moe_bwd_kernels(torch):
          torch.bfloat16, KernelConfig(block_tokens=16, block_slots=8)),
         # L/16's width: two 768-column chunks
         ("L/16 layer d1024 bf16", 8, 196, 1024, 128, torch.bfloat16, None),
+        # granite-moe-1b-a400m+soft's layer at seq 2048
+        ("granite layer bf16", 8, 2048, 1024, 32, torch.bfloat16, None),
     ]
 
     def check(got, want, dt):
@@ -809,9 +868,11 @@ def phase_soft_moe_bwd_kernels(torch):
         ok = bool((diff <= 2.0**-7 * want.float().abs() + 1e-5 * top).all())
         return diff.max().item(), rel, ok
 
-    main = {}
+    main, granite = {}, None
     for i, (label, b, m, d, s, dt, kcfg) in enumerate(cases):
         c = bwd_case(torch, 300 + i, b, m, d, s, dt, kcfg)
+        if label.startswith("granite"):
+            granite = c
         args4 = (c["x"], c["phi_n"], c["g_slots"], c["d_stats"], c["slots"])
         args5 = (c["x"], c["phi_n"], c["ys"], c["g"], c["c_stats"], c["y"])
         dx4, dphi4 = dispatch_bwd(*args4, kcfg)
@@ -981,6 +1042,26 @@ def phase_soft_moe_bwd_kernels(torch):
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
                      "einsum_path_ms": einsum_ms}
+
+    # K4 and K5 at the granite layer's shapes, as the LM training phase
+    # runs them (b=8, m=2048, d=1024, S=32, bf16): the slot-major bodies
+    # have b x 1 x 2 CTAs
+    g = granite
+    for name, kern, kind in (
+            ("dispatch_bwd", lambda: dispatch_bwd(
+                g["x"], g["phi_n"], g["g_slots"], g["d_stats"], g["slots"]),
+             "dispatch"),
+            ("combine_bwd", lambda: combine_bwd(
+                g["x"], g["phi_n"], g["ys"], g["g"], g["c_stats"], g["y"]),
+             "combine")):
+        bound_ms, bound_by, nbytes, flops = soft_moe_bwd_bounds(
+            g["x"], g["phi_n"].shape[1], kind)
+        ms = time_ms(torch, kern, flush=flush)
+        log(f"[softmoe-bwd] {name} timing at the granite layer (b=8 m=2048 "
+            f"d=1024 S=32 bf16, L2 flushed): kernel_ms={ms:.4f} "
+            f"bound={bound_ms * 1e3:.2f} us ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> "
+            f"{flops / ms / 1e9:.2f} TFLOP/s of the least work")
     return out
 
 
@@ -1026,7 +1107,161 @@ def sdpa_bwd_options(torch, operands, grad_out, flush):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: serve full-width qwen2-0.5b
+# phase 6: the routing-health kernel K6 against its plain version
+# ---------------------------------------------------------------------------
+
+
+def health_bounds(x, s):
+    """Least time on the card for one K6 call: the bytes of x, Phi_n, the
+    four stats in and the four outputs over HBM bandwidth vs the f32 flops
+    of the logits (2 m S d a row) and the norms (2 m d) over the f32 rate;
+    the O(m S) weights and their sums are not counted."""
+    b, m, d = x.shape
+    nbytes = (b * m * d * x.element_size() + d * s * 4
+              + 2 * (2 * b * s * 4 + 2 * b * m * 4))
+    flops = b * (2 * m * s * d + 2 * m * d)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_routing_health(torch):
+    from repro_torch.core.inspection import routing_health_from_stats
+    from repro_torch.core.soft_moe import (
+        _dense_routing_health,
+        soft_moe_weights,
+    )
+    from repro_torch.kernels.soft_moe_kernels import (
+        routing_fwd,
+        routing_health,
+        routing_health_ref,
+    )
+    from repro_torch.kernels.tuning import KernelConfig
+
+    # Elementwise |out - ref| <= atol + rtol |ref|, all f32: against the
+    # plain version 1e-5 + 1e-4 |ref| (sums of up to 2048 terms taken in
+    # other orders, logits dotted over d in another order); against the
+    # chunked oracle, which normalizes x before the dot, 1e-4 + 1e-4 |ref|.
+    tol, oracle_tol = (1e-5, 1e-4), (1e-4, 1e-4)
+    names = ("disp_entropy", "importance", "comb_entropy", "token_contrib")
+    cases = [
+        # (label, b, m, d, S, dtype, cfg)
+        ("granite layer bf16", 8, 2048, 1024, 32, torch.bfloat16, None),
+        ("granite layer f32", 8, 2048, 1024, 32, torch.float32, None),
+        ("B/16 layer bf16", 64, 196, 768, 128, torch.bfloat16, None),
+        ("B/16 layer f32", 64, 196, 768, 128, torch.float32, None),
+        # a ragged last token block (45 = 32 + 13) and slot block
+        # (40 = 32 + 8), several slot blocks
+        ("ragged m45 d264 S40 f32", 3, 45, 264, 40, torch.float32, None),
+        ("ragged m45 d264 S40 bf16 bt16 bs8", 3, 45, 264, 40,
+         torch.bfloat16, KernelConfig(block_tokens=16, block_slots=8)),
+    ]
+    main = {}
+    for i, (label, b, m, d, s, dt, kcfg) in enumerate(cases):
+        x, phi_n, _ = soft_moe_case(torch, 600 + i, b, m, d, s, dt)
+        with torch.no_grad():
+            _, d_stats, c_stats = routing_fwd(x, phi_n, kcfg)
+        got = routing_health(x, phi_n, d_stats, c_stats, kcfg)
+        torch.cuda.synchronize()
+        want = routing_health_ref(x, phi_n, d_stats, c_stats, kcfg)
+        # the oracle normalizes x in its dtype: hand it the same values in
+        # f32, as the kernel normalizes them
+        oracle = routing_health_from_stats(x.float(), phi_n, d_stats,
+                                           c_stats)
+        errs, oks = {}, []
+        for n, g, w, o in zip(names, got, want, oracle):
+            errs[n], ok = within(torch, g, w, *tol)
+            errs[n + " vs oracle"], ok2 = within(torch, g, o, *oracle_tol)
+            oks += [ok, ok2]
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        bitwise = True
+        for r in sorted({0, min(1, b - 1), b - 1}):
+            one = routing_health(x[r:r + 1], phi_n,
+                                 tuple(t[r:r + 1] for t in d_stats),
+                                 tuple(t[r:r + 1] for t in c_stats), kcfg)
+            bitwise &= all(torch.equal(a[0], g[r]) for a, g in zip(one, got))
+        again = routing_health(x, phi_n, d_stats, c_stats, kcfg)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, g) for a, g in zip(again, got))
+        log(f"[health] {label}: b={b} m={m} d={d} S={s} "
+            f"{str(dt).replace('torch.', '')} max_abs_err "
+            + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+            + f" (tol plain {tol[0]:.0e} + {tol[1]:.0e}|ref|, oracle "
+            f"{oracle_tol[0]:.0e} + {oracle_tol[1]:.0e}|ref|: {all(oks)}); "
+            f"finite={finite} batched==batch1_bitwise={bitwise} "
+            f"second_run_bitwise={same}")
+        if not (all(oks) and finite and bitwise and same):
+            raise AssertionError(f"routing_health {label} failed")
+        if i == 0:
+            main = {"args": (x, phi_n, d_stats, c_stats),
+                    "err": max(errs[n] for n in names)}
+
+    # No fallback: malformed operands raise and launch nothing.
+    x, phi_n, d_stats, c_stats = main["args"]
+    before = routing_health.launches
+    for call, exc, why in (
+            (lambda: routing_health(x.half(), phi_n, d_stats, c_stats),
+             TypeError, "float16 x"),
+            (lambda: routing_health(x, phi_n, (d_stats[0].double(),
+                                               d_stats[1]), c_stats),
+             TypeError, "float64 d_mx"),
+            (lambda: routing_health(x.transpose(1, 2).contiguous()
+                                    .transpose(1, 2), phi_n, d_stats,
+                                    c_stats), ValueError, "non-contiguous x"),
+            (lambda: routing_health(x, phi_n, d_stats,
+                                    (c_stats[0][:, :5], c_stats[1])),
+             ValueError, "stats of the wrong shape"),
+            (lambda: routing_health(x, phi_n, d_stats, c_stats,
+                                    KernelConfig(block_slots=64)),
+             ValueError, "block_slots=64 > 32"),
+            (lambda: routing_health(x.clone().requires_grad_(), phi_n,
+                                    d_stats, c_stats),
+             NotImplementedError, "x requires grad (telemetry has no "
+             "backward)")):
+        try:
+            call()
+        except exc as e:
+            log(f"[health] malformed operands ({why}) raise "
+                f"{type(e).__name__}: {e}")
+        else:
+            raise AssertionError(f"malformed operands ({why}) did not raise")
+    if routing_health.launches != before:
+        raise AssertionError("a malformed call launched the kernel")
+
+    # Times at the granite layer's shapes (b=8, m=2048, d=1024, S=32,
+    # bf16). No single PyTorch call computes these four reductions; the
+    # yardstick is the port's einsum path on the same operands
+    # (soft_moe_weights, then _dense_routing_health).
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    b, m, d = x.shape
+    s = phi_n.shape[1]
+    phi3, one = phi_n.reshape(d, s, 1), torch.ones((), device="cuda")
+
+    def einsum_path():
+        return _dense_routing_health(*soft_moe_weights(x, phi3, one))
+
+    kernel_ms = time_ms(torch, lambda: routing_health(x, phi_n, d_stats,
+                                                      c_stats), flush=flush)
+    plain_ms = time_ms(torch, lambda: routing_health_ref(x, phi_n, d_stats,
+                                                         c_stats),
+                       reps=3, flush=flush)
+    einsum_ms = time_ms(torch, einsum_path, flush=flush)
+    bound_ms, bound_by, nbytes, flops = health_bounds(x, s)
+    log(f"[health] routing_health timing (b={b} m={m} d={d} S={s} bf16, L2 "
+        f"flushed): kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms=null (no single library call) "
+        f"einsum_path_ms={einsum_ms:.4f} (soft_moe_weights + "
+        f"_dense_routing_health) bound={bound_ms * 1e3:.2f} us ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> "
+        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
+    return {"routing_health": {
+        "max_abs_err": main["err"], "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "einsum_path_ms": einsum_ms}}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serve full-width qwen2-0.5b
 # ---------------------------------------------------------------------------
 
 
@@ -1150,6 +1385,8 @@ def kernel_kind(name):
     (``nvjet`` is cuBLAS's own kernel family), copies and dtype casts,
     and everything else."""
     low = name.lower()
+    if "health_kernel" in name or "health_merge_kernel" in name:
+        return "K6 routing health"
     if "paged_decode_kernel" in name:
         return "K7 paged decode attention"
     if "dispatch_bwd" in name:
@@ -1163,7 +1400,7 @@ def kernel_kind(name):
     if "combine_kernel" in name:
         return "K2/K3 combine"
     if "inv_norm_kernel" in name:
-        return "K1/K2 norm pre-pass"
+        return "K1/K2/K6 norm pre-pass"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "gemv", "nvjet")):
         return "matmul"
     if "copy_kernel" in low:
@@ -1297,7 +1534,7 @@ def phase_serve(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: Soft-MoE ViT-B/16 inference at full width and depth
+# phase 8: Soft-MoE ViT-B/16 inference at full width and depth
 # ---------------------------------------------------------------------------
 
 
@@ -1497,7 +1734,7 @@ def phase_vit(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: Soft-MoE ViT-B/16 training steps at full width and depth
+# phase 9: Soft-MoE ViT-B/16 training steps at full width and depth
 # ---------------------------------------------------------------------------
 
 
@@ -1772,6 +2009,269 @@ def phase_train(torch, card):
     return {"dispatch_bwd": launches[3], "combine_bwd": launches[4]}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: Soft-MoE LM training with routing-health telemetry, granite at
+# full width and depth
+# ---------------------------------------------------------------------------
+
+
+def phase_lm_train(torch, card):
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import soft_moe_apply
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.soft_moe_kernels import (
+        combine_apply,
+        combine_bwd,
+        combine_online,
+        dispatch_bwd,
+        routing_fwd,
+        routing_health,
+    )
+    from repro_torch.models import lm, lm_init, lm_loss
+    from repro_torch.optim import OptimizerConfig, tree_leaves, tree_map
+    from repro_torch.serve.telemetry import flatten_telemetry
+    from repro_torch.train import (
+        Trainer,
+        TrainerConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    kernels = (routing_fwd, combine_apply, combine_online, dispatch_bwd,
+               combine_bwd, routing_health)
+    names = ("K1", "K2", "K3", "K4", "K5", "K6")
+
+    def counts():
+        return tuple(k.launches for k in kernels)
+
+    def zero_counts():
+        for k in kernels:
+            k.launches = 0
+
+    def show(c):
+        return " ".join(f"{n} {v}" for n, v in zip(names, c))
+
+    gc.collect()  # the earlier phases' objects, before the state
+    torch.cuda.empty_cache()
+    cfg = get_config("granite-moe-1b-a400m+soft")
+    n_moe = len(cfg.moe_layer_indices())
+    batch, seq = 8, 2048
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             lambda g: lm_init(g, cfg))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                       batch_size=batch, seed=0, device="cuda")
+    ocfg = OptimizerConfig()  # the repo's train cells' (launch/specs.py)
+
+    def loss_on(p, b):
+        return lm_loss(p, cfg, b, use_kernel=True, telemetry=True)
+
+    def loss_off(p, b):
+        return lm_loss(p, cfg, b, use_kernel=True)
+
+    log(f"[lm] {cfg.name}: {cfg.num_layers} layers ({n_moe} Soft-MoE, "
+        f"{cfg.moe.num_experts} experts x {cfg.moe.slots_per_expert} slot, "
+        f"d_ff {cfg.moe.expert_d_ff}), d {cfg.d_model}, "
+        f"{cfg.attention.num_heads} heads / {cfg.attention.num_kv_heads} KV "
+        f"x {cfg.attention.head_dim}, vocab {cfg.vocab_size}, tied "
+        f"{cfg.tie_embeddings}; scan_layers={cfg.scan_layers} "
+        f"remat={cfg.remat}; {n_params} params ({n_params / 1e9:.4f} B); "
+        f"train state (f32 params, AdamW mu and nu, step) {state_bytes} "
+        f"bytes = {state_bytes / 2**30:.3f} GiB (init "
+        f"{time.perf_counter() - t0:.1f} s); compute {cfg.dtype}, batch "
+        f"{batch} x {seq} tokens of SyntheticLM")
+
+    # Step 0, the same params and batch: the kernel path's loss and every
+    # layer's telemetry against the einsum path's, in bf16. Bounds: the
+    # loss within 1e-3 of itself; each telemetry leaf (24 layers stacked,
+    # rows included) within 2e-2 of its largest value. The einsum path
+    # normalizes x in bf16, the kernels in f32 (a logit moves by ~2^-9),
+    # and every later bf16 rounding of the residual stream adds up to 2^-8
+    # over 24 layers.
+    b0 = data.batch(0)
+    with torch.no_grad():
+        lk, mk = lm_loss(state["params"], cfg, b0, use_kernel=True,
+                         telemetry=True)
+        le, me = lm_loss(state["params"], cfg, b0, use_kernel=False,
+                         telemetry=True)
+    loss_err = abs(float(lk) - float(le)) / abs(float(le))
+    rows, worst = [], 0.0
+
+    def walk(a, b_, path):
+        nonlocal worst
+        if isinstance(b_, dict):
+            for k in b_:
+                walk(a[k], b_[k], f"{path}.{k}" if path else str(k))
+            return
+        diff = (a.float() - b_.float()).abs().max()
+        top = b_.float().abs().max()  # a count of 0 is held exactly
+        err = (diff / top if top > 0 else diff).item()
+        worst = max(worst, err)
+        rows.append((path, err, tuple(a.shape)))
+
+    walk(mk["telemetry"], me["telemetry"], "")
+    flat_k, flat_e = (flatten_telemetry(m["telemetry"]) for m in (mk, me))
+    log(f"[lm] step 0 in bf16, kernel vs einsum path: loss {float(lk):.6f} "
+        f"vs {float(le):.6f} (ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.6f}), rel diff {loss_err:.3e} (tol "
+        f"1e-3); telemetry max|diff| / max|ref| per leaf (tol 2e-2): "
+        + " ".join(f"{p}{list(sh)}={e:.3e}" for p, e, sh in rows))
+    log(f"[lm] step 0 flat telemetry, kernel path: "
+        + " ".join(f"{k}={v:.6g}" for k, v in flat_k.items()))
+    if loss_err > 1e-3 or worst > 2e-2 or set(flat_k) != set(flat_e):
+        raise AssertionError("kernel-path loss or telemetry disagrees with "
+                             "the einsum path")
+    del mk, me
+
+    # one MoE layer in f32 on the input the model feeds it (captured from
+    # its own forward): every telemetry leaf within 1e-4 of its largest
+    # value (sums in other orders)
+    seen, inner = [], lm.moe_apply
+
+    def capture(p, moe_cfg, xn, *a, **kw):
+        seen.append((p, moe_cfg, xn))
+        return inner(p, moe_cfg, xn, *a, **kw)
+
+    lm.moe_apply = capture
+    try:
+        with torch.no_grad():
+            lm_loss(state["params"], cfg, b0, use_kernel=True)
+    finally:
+        lm.moe_apply = inner
+    p_moe, moe_cfg, xn = seen[0]
+    seen.clear()
+    with torch.no_grad():
+        tk = soft_moe_apply(p_moe, moe_cfg, xn.float(), cfg.act,
+                            use_kernel=True, telemetry=True)[1]["telemetry"]
+        te = soft_moe_apply(p_moe, moe_cfg, xn.float(), cfg.act,
+                            telemetry=True)[1]["telemetry"]
+    rows, worst = [], 0.0
+    walk(tk, te, "")
+    log(f"[lm] layer {cfg.moe_layer_indices()[0]} alone in f32 on its "
+        f"captured input, telemetry "
+        f"kernel vs einsum path, max|diff| / max|ref| (tol 1e-4): "
+        + " ".join(f"{p}={e:.3e}" for p, e, _ in rows))
+    if worst > 1e-4:
+        raise AssertionError("f32 layer telemetry disagrees")
+    del p_moe, xn, tk, te
+
+    # The main path: the Trainer drives make_train_step on the telemetry
+    # loss and logs the flattened telemetry every step; counts from 0.
+    ckpt_dir = ROOT / "build" / "chip_smoke_lm_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_steps = 7
+    trainer = Trainer(
+        TrainerConfig(total_steps=n_steps, checkpoint_every=10**9,
+                      checkpoint_dir=str(ckpt_dir), keep_checkpoints=1,
+                      log_every=1),
+        loss_on, None, ocfg, data)
+    save = trainer.ckpt.save
+    saved = {}
+
+    def timed_save(*a, **kw):  # the Trainer's closing save of the state
+        t = time.perf_counter()
+        save(*a, **kw)
+        saved["s"] = time.perf_counter() - t
+
+    trainer.ckpt.save = timed_save
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    state = trainer.run(torch.Generator(device="cuda").manual_seed(0),
+                        start_state=state)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    hist = trainer.metrics_history
+    times = [m["step_time"] for m in hist]
+    p50 = statistics.median(times)
+    want = (2 * n_moe, 2 * n_moe, 0, n_moe, n_moe, n_moe)
+    tkeys = sorted(k for k in hist[-1] if k.startswith("telemetry_"))
+    log(f"[lm] {card}: Trainer steps 0-{n_steps - 1} (telemetry on): step "
+        f"p50 {p50 * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
+        f"{max(times) * 1e3:.2f}) = {batch * seq / p50:.1f} tokens/s; loss "
+        f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; peak device "
+        f"memory {peak / 2**30:.3f} GiB (state {state_bytes / 2**30:.2f} "
+        f"GiB); launches {show(launches)} (= {n_steps} x {show(want)}: "
+        f"remat runs each MoE layer's forward twice, K6 only in the "
+        f"first); closing save of the whole state {state_bytes / 1e9:.2f} GB "
+        f"in {saved.get('s', float('nan')):.2f} s; {len(tkeys)} telemetry "
+        f"keys logged, e.g. "
+        + " ".join(f"{k}={hist[-1][k]:.5g}" for k in tkeys[:8]))
+    if launches != tuple(n_steps * c for c in want):
+        raise AssertionError(f"LM train-step launches {launches} do not "
+                             f"match {n_steps} x {want}")
+    if not all(math.isfinite(m["loss"]) for m in hist) or not tkeys or \
+            not all(math.isfinite(m[k]) for m in hist for k in tkeys):
+        raise AssertionError("non-finite loss or telemetry, or none logged")
+
+    # telemetry off beside on, in turns (off, on, on, off) x 2, the same
+    # clock (the step's call to a host sync on its loss)
+    step_on = make_train_step(loss_on, ocfg)
+    step_off = make_train_step(loss_off, ocfg)
+    turns = {"on": [], "off": []}
+    zero_counts()
+    for i, key in enumerate(["off", "on", "on", "off"] * 2):
+        b = data.batch(n_steps + i)
+        t0 = time.perf_counter()
+        state, m = (step_on if key == "on" else step_off)(state, b)
+        float(m["total_loss"])
+        turns[key].append(time.perf_counter() - t0)
+    k6 = routing_health.launches
+    on50, off50 = (statistics.median(turns[k]) for k in ("on", "off"))
+    log(f"[lm] {card}: telemetry on vs off in turns: step p50 "
+        f"{on50 * 1e3:.2f} ms vs {off50 * 1e3:.2f} ms "
+        f"({batch * seq / on50:.1f} vs {batch * seq / off50:.1f} tokens/s; "
+        f"on/off "
+        f"{on50 / off50:.4f}); K6 launches {k6} (= 4 x {n_moe}: none with "
+        f"telemetry off)")
+    if k6 != 4 * n_moe:
+        raise AssertionError("K6 ran with telemetry off")
+
+    # Where the time goes: one profiled step with telemetry on
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b = data.batch(n_steps + 8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_on(state, b)
+        float(m["total_loss"])
+        pwall = time.perf_counter() - t0
+    per = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us, cnt = per.get(ev.name, (0.0, 0))
+            per[ev.name] = (us + ev.time_range.elapsed_us(), cnt + 1)
+    rows = sorted(((k, us, c) for k, (us, c) in per.items()),
+                  key=lambda r: -r[1])
+    busy = sum(us for _, us, _ in rows) / 1e6
+    log(f"[profile] lm train {card}: one step in {pwall * 1e3:.1f} ms wall "
+        f"under the profiler; device busy {busy * 1e3:.1f} ms = "
+        f"{busy / pwall:.3f} of wall")
+    kinds = {}
+    for name, us, cnt in rows:
+        k = kernel_kind(name)
+        kinds[k] = (kinds.get(k, (0.0, 0))[0] + us,
+                    kinds.get(k, (0.0, 0))[1] + cnt)
+    for k, (us, cnt) in sorted(kinds.items(), key=lambda r: -r[1][0]):
+        log(f"[profile]   {k}: {us / 1e3:.2f} ms in {cnt} launches "
+            f"({us / 1e6 / busy:.3f} of device time)")
+    for name, us, cnt in rows[:12]:
+        log(f"[profile]   top: {us / 1e3:.2f} ms x{cnt} {name[:90]}")
+    del state, trainer, step_on, step_off
+    torch.cuda.empty_cache()
+    return {"routing_health": launches[5]}
+
+
 def _get(tree, path):
     for k in path:
         tree = tree[k]
@@ -1787,9 +2287,11 @@ def main():
         kern = phase_kernels(torch)
         kern.update(phase_soft_moe_kernels(torch))
         kern.update(phase_soft_moe_bwd_kernels(torch))
+        kern.update(phase_routing_health(torch))
         launches = phase_serve(torch, card)
         launches.update(phase_vit(torch, card))
         launches.update(phase_train(torch, card))
+        launches.update(phase_lm_train(torch, card))
     except Exception as e:  # noqa: BLE001 — report which phase failed
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr,
               flush=True)

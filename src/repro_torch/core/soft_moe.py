@@ -10,7 +10,8 @@ counterpart of ``repro/core/soft_moe.py``:
 weights; ``use_kernel=True`` routes dispatch and combine through the CUDA
 kernels K1 and K2 (``kernels/ops.py``; their plain versions on CPU
 tensors), which never write them to device memory, and whose autograd
-Functions run the backward kernels K4 and K5. Both softmaxes normalize
+Functions run the backward kernels K4 and K5; with ``telemetry=True``
+the kernel path also runs K6 (routing health). Both softmaxes normalize
 within one sequence, so a row's output does not depend on how it is
 batched.
 """
@@ -56,15 +57,18 @@ def soft_moe_apply(params, moe_cfg, x, act: str = "silu",
                    use_kernel: bool = False, telemetry: bool = False):
     """x: (b, m, d) -> (b, m, d). Returns (y, metrics) with
     ``moe_aux_loss`` (0: balanced by construction) and ``max_combine``
-    (the largest combine weight; on the kernel path 1 / c_den)."""
-    if telemetry:
-        raise NotImplementedError(
-            "Soft-MoE telemetry (the routing-health kernel K6) is not "
-            "ported yet")
+    (the largest combine weight; on the kernel path 1 / c_den).
+
+    ``telemetry=True`` adds ``metrics["telemetry"]``, the Fig. 9
+    routing-health set as detached f32 scalars plus per-row (b,) ``rows``
+    (see the JAX function). It never changes ``y``: the kernel path reads
+    the routing pass's saved softmax stats through K6
+    (``kernels/ops.py::routing_health``); the einsum path reduces the
+    weights it already holds (``_dense_routing_health``)."""
     b, m, d = x.shape
     n, p = moe_cfg.num_experts, moe_cfg.slots_per_expert
     phi = params["phi"]
-    c_weights = c_stats = None
+    c_weights = c_stats = d_w = d_stats = None
     if use_kernel:
         from ..kernels import ops as kops
         from ..kernels.tuning import config_from_moe
@@ -72,7 +76,11 @@ def soft_moe_apply(params, moe_cfg, x, act: str = "silu",
         kcfg = config_from_moe(moe_cfg, m=m, d=d)
         phi_n = kops.normalized_phi(phi, params["scale"])
         # one logits pass: dispatched slots + the combine softmax stats
-        slots, c_stats = kops.soft_moe_routing(x, phi_n, config=kcfg)
+        if telemetry:
+            slots, d_stats, c_stats = kops.soft_moe_routing(
+                x, phi_n, config=kcfg, with_d_stats=True)
+        else:
+            slots, c_stats = kops.soft_moe_routing(x, phi_n, config=kcfg)
         slots = slots.reshape(b, n, p, d)
     else:
         d_w, c_weights = soft_moe_weights(x, phi, params["scale"])
@@ -107,4 +115,47 @@ def soft_moe_apply(params, moe_cfg, x, act: str = "silu",
         metrics["max_combine"] = c_weights.max().detach()
     else:
         metrics["max_combine"] = (1.0 / c_stats[1]).max().detach()
+    if telemetry:
+        if use_kernel:
+            dent, imp, cent, contrib = kops.routing_health(
+                x, phi_n, d_stats, c_stats, config=kcfg)
+            max_dispatch = (1.0 / d_stats[1]).max()
+        else:
+            dent, imp, cent, contrib = _dense_routing_health(
+                d_w.detach(), c_weights.detach())
+            max_dispatch = d_w.detach().max()
+        imp_e = imp.reshape(b, n, p).sum(dim=(0, 2))  # per-expert mass
+        metrics["telemetry"] = {
+            "max_combine": metrics["max_combine"],
+            "max_dispatch": max_dispatch.float(),
+            "dispatch_entropy": dent.mean().float(),
+            "combine_entropy": cent.mean().float(),
+            "expert_importance_spread": (
+                imp_e.max() / torch.clamp(imp_e.min(), min=1e-9)).float(),
+            "token_contribution_min": contrib.min().float(),
+            "token_contribution_max": contrib.max().float(),
+            # per-sequence rows (b,): Soft MoE's softmaxes are per row, so
+            # these do not move with the batch's composition
+            "rows": {
+                "dispatch_entropy": dent.mean(dim=1).float(),
+                "combine_entropy": cent.mean(dim=1).float(),
+                "token_contribution_min": contrib.amin(dim=1).float(),
+            },
+        }
     return y, metrics
+
+
+def _dense_routing_health(d_w, c_weights):
+    """Dense oracle of K6's reductions. d_w, c_weights: (b, m, n, p)
+    softmax weights. Returns ``(disp_entropy (b, S), importance (b, S),
+    comb_entropy (b, m), token_contrib (b, m))`` as
+    ``kernels.ops.routing_health``."""
+    b, m, n, p = d_w.shape
+    d_flat = d_w.reshape(b, m, n * p)
+    c_flat = c_weights.reshape(b, m, n * p)
+
+    def ent(w, dim):
+        return -torch.where(w > 0, w * torch.log(torch.clamp(w, min=1e-30)),
+                            0.0).sum(dim)
+
+    return (ent(d_flat, 1), c_flat.sum(1), ent(c_flat, 2), d_flat.sum(2))

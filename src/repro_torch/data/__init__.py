@@ -1,2 +1,2 @@
 """Data of the port, counterpart of ``repro/data``."""
-from .pipeline import SyntheticImages  # noqa: F401
+from .pipeline import SyntheticImages, SyntheticLM  # noqa: F401

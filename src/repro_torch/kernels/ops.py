@@ -1,6 +1,7 @@
 """Soft-MoE ops on the kernels, forward and backward: counterpart of
 ``repro/kernels/ops.py``.
 
+``routing_health`` runs K6, the telemetry reductions, with no gradient.
 ``soft_moe_routing`` runs K1 (dispatched slots plus both softmax
 directions' stats from one logits pass); ``soft_moe_combine`` runs K2
 with K1's saved combine stats, or K3 (online softmax) without them. Each
@@ -41,6 +42,7 @@ from .soft_moe_kernels import (
     dispatch_bwd,
     routing_fwd,
 )
+from .soft_moe_kernels import routing_health as _routing_health
 from .tuning import KernelConfig
 
 
@@ -122,6 +124,19 @@ def soft_moe_routing(x, phi_n, config: Optional[KernelConfig] = None, *,
     if with_d_stats:
         return slots, (d_mx, d_den), (c_mx, c_den)
     return slots, (c_mx, c_den)
+
+
+def routing_health(x, phi_n, d_stats, c_stats,
+                   config: Optional[KernelConfig] = None):
+    """The Fig. 9 routing-health reductions from the saved softmax stats
+    (K6): ``(disp_entropy (b, S), importance (b, S), comb_entropy (b, m),
+    token_contrib (b, m))``, f32. Telemetry carries no gradient (the JAX
+    function stops it at every input), so the kernel runs on detached
+    tensors; ``core.inspection.routing_health_from_stats`` is its chunked
+    plain-torch twin."""
+    return _routing_health(x.detach(), phi_n.detach(),
+                           tuple(t.detach() for t in d_stats),
+                           tuple(t.detach() for t in c_stats), config)
 
 
 def soft_moe_dispatch(x, phi_n, config: Optional[KernelConfig] = None):

@@ -17,6 +17,10 @@ wrappers and their plain versions, counterpart of
 - K5 ``combine_bwd`` (``csrc/soft_moe_combine_bwd.cu``; replaces
   ``combine_bwd_pallas``): dX, dPhi_n and dYs from the output's gradient,
   with the combine weights recomputed from the saved per-token stats.
+- K6 ``routing_health`` (``csrc/soft_moe_routing_health.cu``; replaces
+  ``routing_health_pallas``): the paper's Fig. 9 routing-health
+  reductions (per-slot dispatch entropy and combine importance, per-token
+  combine entropy and dispatch mass) from K1's saved stats, for telemetry.
 - ``dispatch_2d`` / ``combine_2d``: single-sequence wrappers on K1 / K3
   (``dispatch_pallas`` / ``combine_pallas`` in the JAX package).
 
@@ -35,7 +39,9 @@ The plain versions repeat the kernels' tile recurrences in PyTorch, with
 tests can pin them to the JAX kernels' tiling. Each batch row runs on its
 own, so row i of a batch equals that row run alone, bitwise; dPhi_n, the
 one output that sums over rows, is the sum of the rows' own partials in
-row order, as the CUDA kernels form it.
+row order, as the CUDA kernels form it. K6 splits each row's tokens into
+chunks of ``HEALTH_TILES`` token blocks and sums the chunks' partials in
+chunk order, as its kernel does.
 """
 from __future__ import annotations
 
@@ -44,7 +50,13 @@ from typing import Optional
 
 import torch
 
-from .tuning import SOFT_MOE_TILE, KernelConfig, d_chunk, default_config
+from .tuning import (
+    HEALTH_TILES,
+    SOFT_MOE_TILE,
+    KernelConfig,
+    d_chunk,
+    default_config,
+)
 
 _NEG = -1e30
 _EPS = 1e-6  # must match ref.l2_normalize
@@ -339,6 +351,87 @@ def combine_bwd_ref(x, phi_n, ys, g, c_stats, y,
     return dx.to(x.dtype), dphi.to(phi_n.dtype), dys.to(ys.dtype)
 
 
+def _health_row(xf, phi, dmx, dden, cmx, cden, bt, bs):
+    """K6's recurrences for one row, on the tiles the TPU wrapper pads to:
+    pad tokens and pad slots are masked at -1e30 (finite: 0 * -inf is
+    NaN), the stats padded with (max 0, denom 1). Returns (disp_entropy
+    (S,), importance (S,), comb_entropy (m,), token_contrib (m,))."""
+    m, s = xf.shape[0], phi.shape[1]
+    m_pad, s_pad = -(-m // bt) * bt, -(-s // bs) * bs
+    dev = xf.device
+    x = torch.nn.functional.pad(xf, (0, 0, 0, m_pad - m))
+    ph = torch.nn.functional.pad(phi, (0, s_pad - s))
+    rn = _inv_norm(x)
+    ln_dden = torch.log(torch.nn.functional.pad(dden, (0, s_pad - s),
+                                                value=1.0))
+    dmx = torch.nn.functional.pad(dmx, (0, s_pad - s))
+    ln_cden = torch.log(torch.nn.functional.pad(cden, (0, m_pad - m),
+                                                value=1.0))
+    cmx = torch.nn.functional.pad(cmx, (0, m_pad - m))
+    valid_row = torch.arange(m_pad, device=dev) < m
+    valid_col = torch.arange(s_pad, device=dev) < s
+    span = bt * HEALTH_TILES
+    dent_parts, imp_parts = [], []  # one (S_pad,) per token chunk
+    cent = torch.zeros(s_pad // bs, m_pad, device=dev)  # per slot block
+    contrib = torch.zeros_like(cent)
+    for c0 in range(0, m_pad, span):  # one CTA per (chunk, slot block)
+        dent_c = torch.zeros(s_pad, device=dev)
+        imp_c = torch.zeros_like(dent_c)
+        for j, s0 in enumerate(range(0, s_pad, bs)):
+            sl = slice(s0, s0 + bs)
+            dent, imp = dent_c[sl], imp_c[sl]
+            for t0 in range(c0, min(c0 + span, m_pad), bt):
+                tk = slice(t0, t0 + bt)
+                lg = _logits(x[tk], rn[tk], ph[:, sl])  # (bt, bs)
+                row_ok, col_ok = valid_row[tk, None], valid_col[None, sl]
+                # dispatch direction: exact weights from the per-slot stats
+                ln_d = (torch.where(row_ok, lg, _NEG) - dmx[None, sl]
+                        - ln_dden[None, sl])
+                d_w = torch.exp(ln_d)
+                dent = dent - (d_w * ln_d).sum(0)
+                contrib[j, tk] = torch.where(col_ok, d_w, 0.0).sum(1)
+                # combine direction: from the per-token stats
+                ln_c = (torch.where(col_ok, lg, _NEG) - cmx[tk, None]
+                        - ln_cden[tk, None])
+                c_w = torch.exp(ln_c)
+                cent[j, tk] = -(c_w * ln_c).sum(1)
+                imp = imp + torch.where(row_ok, c_w, 0.0).sum(0)
+            dent_c[sl], imp_c[sl] = dent, imp
+        dent_parts.append(dent_c)
+        imp_parts.append(imp_c)
+    # the second pass: partials summed in chunk / slot-block order
+    return (_row_sum(dent_parts)[:s], _row_sum(imp_parts)[:s],
+            _row_sum(list(cent))[:m], _row_sum(list(contrib))[:m])
+
+
+def _health_shapes(x, phi_n, d_stats, c_stats):
+    b, m, d, s = _shapes(x, phi_n)
+    _check_shapes(("d_stats[0]", d_stats[0], (b, s)),
+                  ("d_stats[1]", d_stats[1], (b, s)),
+                  ("c_stats[0]", c_stats[0], (b, m)),
+                  ("c_stats[1]", c_stats[1], (b, m)))
+    return b, m, d, s
+
+
+def routing_health_ref(x, phi_n, d_stats, c_stats,
+                       cfg: Optional[KernelConfig] = None):
+    """Plain version of K6: ``(disp_entropy (b, S), importance (b, S),
+    comb_entropy (b, m), token_contrib (b, m))`` in f32 from K1's per-slot
+    ``d_stats`` and per-token ``c_stats`` (each a (max, denom) pair)."""
+    b, m, d, s = _health_shapes(x, phi_n, d_stats, c_stats)
+    cfg = _resolve(cfg, m, d, s)
+    phi = phi_n.float()
+    dmx, dden = (t.float() for t in d_stats)
+    cmx, cden = (t.float() for t in c_stats)
+    rows = [_health_row(x[i].float(), phi, dmx[i], dden[i], cmx[i], cden[i],
+                        cfg.block_tokens, cfg.block_slots) for i in range(b)]
+    if not b:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        return (torch.zeros((0, s), **f32), torch.zeros((0, s), **f32),
+                torch.zeros((0, m), **f32), torch.zeros((0, m), **f32))
+    return tuple(torch.stack(t) for t in zip(*rows))
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -351,7 +444,8 @@ def _refuse_grad(*tensors):
         raise NotImplementedError(
             "a raw Soft-MoE CUDA kernel has no backward: differentiate "
             "through the autograd Functions of kernels/ops.py "
-            "(soft_moe_routing, soft_moe_combine), or call the kernel under "
+            "(soft_moe_routing, soft_moe_combine; routing_health carries no "
+            "gradient), or call the kernel under "
             "torch.no_grad() or torch.inference_mode()")
 
 
@@ -599,6 +693,50 @@ def combine_bwd(x, phi_n, ys, g, c_stats, y,
 
 
 combine_bwd.launches = 0
+
+
+def routing_health(x, phi_n, d_stats, c_stats,
+                   cfg: Optional[KernelConfig] = None):
+    """K6: ``(disp_entropy (b, S), importance (b, S), comb_entropy (b, m),
+    token_contrib (b, m))`` f32, the Fig. 9 routing-health reductions of
+    the dispatch and combine weights recomputed tile-wise from K1's saved
+    ``d_stats = (d_mx, d_den)`` (b, S) and ``c_stats = (c_mx, c_den)``
+    (b, m), each f32; x (b, m, d) f32 or bf16, phi_n (d, S) f32. CPU
+    tensors run ``routing_health_ref``; CUDA tensors launch the kernel on
+    the current stream or raise. Telemetry only: it has no gradient."""
+    b, m, d, s = _health_shapes(x, phi_n, d_stats, c_stats)
+    cfg = _resolve(cfg, m, d, s)
+    if x.device.type == "cpu":
+        return routing_health_ref(x, phi_n, d_stats, c_stats, cfg)
+    _refuse_grad(x, phi_n, *d_stats, *c_stats)
+    _check_cuda(cfg, x, phi_n, stats=tuple(d_stats) + tuple(c_stats))
+    nsb = -(-s // cfg.block_slots)
+    nch = -(-m // (cfg.block_tokens * HEALTH_TILES))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dent, imp = torch.empty((b, s), **f32), torch.empty((b, s), **f32)
+    cent, contrib = torch.empty((b, m), **f32), torch.empty((b, m), **f32)
+    rn = torch.empty((b, m), **f32)
+    p_dent, p_imp = (torch.empty((b, nch, s), **f32) for _ in range(2))
+    p_cent, p_contrib = (torch.empty((b, nsb, m), **f32) for _ in range(2))
+    fn = _launcher("soft_moe_routing_health",
+                   "soft_moe_routing_health_launch", 15, 8)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), phi_n.data_ptr(), d_stats[0].data_ptr(),
+                 d_stats[1].data_ptr(), c_stats[0].data_ptr(),
+                 c_stats[1].data_ptr(), dent.data_ptr(), imp.data_ptr(),
+                 cent.data_ptr(), contrib.data_ptr(), rn.data_ptr(),
+                 p_dent.data_ptr(), p_imp.data_ptr(), p_cent.data_ptr(),
+                 p_contrib.data_ptr(), _DTYPE_CODE[x.dtype], b, m, d, s,
+                 cfg.block_tokens, cfg.block_slots, HEALTH_TILES,
+                 _stream(x.device))
+    if err != 0:
+        raise RuntimeError(
+            f"soft_moe_routing_health launch failed: cudaError {err}")
+    routing_health.launches += 1
+    return dent, imp, cent, contrib
+
+
+routing_health.launches = 0
 
 
 # ---------------------------------------------------------------------------

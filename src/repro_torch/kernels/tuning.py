@@ -29,6 +29,11 @@ several such tiles in shared memory at once (up to 128 keys) and keeps
 the per-tile update order, so the staging width does not change the
 arithmetic. There is no interpret mode: a CPU tensor runs the plain
 PyTorch version of each kernel.
+
+The routing-health kernel (K6) reduces a row's tokens in chunks of
+``HEALTH_TILES`` token blocks, one CUDA block per (chunk, slot block,
+row), and sums the chunks' partials in chunk order; the chunk does not
+depend on the batch, so a row's statistics do not either.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import torch
 
 SOFT_MOE_TILE = 32  # largest token / slot block of the CUDA kernels
 D_CHUNKS = (128, 256, 384, 768)  # d-chunk widths the kernels are built for
+HEALTH_TILES = 2  # token blocks one block of the routing-health kernel reduces
 
 
 @dataclass(frozen=True)

@@ -1,19 +1,27 @@
-"""Decoder-only LM, dense GQA family, counterpart of ``repro/models/lm.py``;
-its transformer block also carries the Soft-MoE layers of the ViT
-(``models/vit.py``).
+"""Decoder-only LM, dense GQA and Soft-MoE families, counterpart of
+``repro/models/lm.py``; its transformer block also carries the Soft-MoE
+layers of the ViT (``models/vit.py``).
 
-The port runs every layer in a Python loop (the JAX package's unrolled
-serving path). Params hold one dict per layer under ``"layers"``; the
-JAX package stacks the layers of each homogeneous segment on a leading
-axis instead (``convert.params_from_jax`` splits them). LMs with MoE,
-SSM or frontend blocks, and the scan/remat training path, wait for later
-slices (``check_supported``).
+Params hold one dict per layer under ``"layers"``; the JAX package stacks
+the layers of each homogeneous segment on a leading axis instead
+(``convert.params_from_jax`` splits them). The port runs every layer in
+a Python loop. In train mode with ``cfg.scan_layers`` it follows the JAX
+package's scan path: with ``cfg.remat`` each block runs under activation
+checkpointing (``torch.utils.checkpoint``), and the telemetry of a
+segment is stacked on a leading ``(count,)`` axis and keyed by the
+segment's first layer; otherwise (serving, or ``scan_layers`` off, as
+``reduced`` sets it) each layer's telemetry is keyed by its index, as
+the JAX unrolled path keys it. SSM, MLA, frontend and encoder-decoder
+models wait for later slices (``check_supported``); MoE layers run the
+``soft`` variant (``core.moe_init`` refuses the others).
 """
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
 import torch
+
+from torch.utils.checkpoint import checkpoint
 
 from ..core import moe_apply, moe_init, resolve_moe_cfg
 from ..layers.attention import attention_apply, attention_init
@@ -41,8 +49,6 @@ def segment_plan(cfg, n_layers: Optional[int] = None
 def check_supported(cfg):
     """Raise for the parts of the config family the port lacks so far."""
     missing = []
-    if cfg.moe_layer_indices():
-        missing.append("MoE layers")
     if cfg.has_ssm():
         missing.append("SSM blocks")
     if not cfg.has_attention() or cfg.attention.kind != "gqa":
@@ -71,14 +77,19 @@ def block_init(gen: torch.Generator, cfg, is_moe: bool = False):
 def block_apply(params, cfg, x, *, is_moe: bool = False,
                 is_global: bool = True, positions=None, cache=None,
                 mode: str = "train", use_kernel: bool = False,
-                block_tables=None, paged_kernel: bool = False):
-    """Returns (y, cache, aux). ``is_moe`` runs the block's MLP as a Soft-MoE
-    layer (``use_kernel`` routes it through the routing and combine
-    kernels); aux is its auxiliary loss (the float 0.0 otherwise, so a
-    dense block launches nothing for it). ``block_tables``
-    (B, blocks_per_row) switches the attention cache to the paged
-    block-pool layout; ``paged_kernel`` routes paged single-token decode
-    through the paged decode-attention kernel."""
+                block_tables=None, paged_kernel: bool = False,
+                telemetry: bool = False):
+    """Returns (y, cache, aux), or (y, cache, aux, telem) with
+    ``telemetry``. ``is_moe`` runs the block's MLP as a Soft-MoE layer
+    (``use_kernel`` routes it through the routing and combine kernels);
+    aux is its auxiliary loss (the float 0.0 otherwise, so a dense block
+    launches nothing for it). ``block_tables`` (B, blocks_per_row)
+    switches the attention cache to the paged block-pool layout;
+    ``paged_kernel`` routes paged single-token decode through the paged
+    decode-attention kernel. ``telem`` holds detached f32 scalars: the
+    residual RMS, the attention output's absmax and, on a MoE block, the
+    layer's routing health under ``"moe"``; the block's output is the same
+    bitwise either way."""
     aux = 0.0
     xn = norm_apply(params["norm1"], cfg, x)
     a_out, a_cache = attention_apply(
@@ -88,25 +99,88 @@ def block_apply(params, cfg, x, *, is_moe: bool = False,
         mode=mode, block_tables=block_tables, paged_kernel=paged_kernel,
     )
     x = x + a_out
+    moe_telem = None
     if "norm2" in params:
         xn = norm_apply(params["norm2"], cfg, x)
         if is_moe:
             m_out, metrics = moe_apply(
                 params["moe"], resolve_moe_cfg(cfg.moe, cfg.d_ff), xn,
-                cfg.act, use_kernel=use_kernel, mode=mode)
+                cfg.act, use_kernel=use_kernel, telemetry=telemetry,
+                mode=mode)
             aux = aux + metrics["moe_aux_loss"]
+            moe_telem = metrics.get("telemetry")
         else:
             m_out = mlp_apply(params["mlp"], xn, cfg.act)
         x = x + m_out
-    return x, None if cache is None else {"attn": a_cache}, aux
+    new_cache = None if cache is None else {"attn": a_cache}
+    if not telemetry:
+        return x, new_cache, aux
+    telem = {
+        "residual_rms": torch.sqrt(torch.mean(torch.square(
+            x.detach().float()))),
+        "max_attn_out": a_out.detach().float().abs().max(),
+    }
+    if moe_telem is not None:
+        telem["moe"] = moe_telem
+    return x, new_cache, aux, telem
+
+
+def _stack_telemetry(per_layer):
+    """Per-layer telemetry dicts -> one dict of leaves stacked on a
+    leading (count,) axis, as a JAX scan stacks its outputs."""
+    first = per_layer[0]
+    if isinstance(first, dict):
+        return {k: _stack_telemetry([t[k] for t in per_layer])
+                for k in first}
+    return torch.stack(per_layer)
+
+
+def _train_block(p, cfg, x, is_moe, is_global, positions, use_kernel,
+                 telemetry, remat):
+    """One block of the train-mode scan path: (y, aux, telem or None).
+    Under ``remat`` the block runs under activation checkpointing, and its
+    telemetry is taken in the forward only: the backward's recompute runs
+    the block without it, so the routing-health kernel runs once per MoE
+    layer per step (in JAX the recompute drops the stop_gradient'd
+    telemetry that the backward does not need). The telemetry is detached
+    and saves nothing for the backward, so both runs save the same
+    tensors."""
+    stash = []
+
+    def body(h):
+        out = block_apply(p, cfg, h, is_moe=is_moe, is_global=is_global,
+                          positions=positions, mode="train",
+                          use_kernel=use_kernel,
+                          telemetry=telemetry and not stash)
+        if len(out) == 4:
+            stash.append(out[3])
+        return out[0], out[2]
+
+    y, aux = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+    return y, aux, stash[0] if stash else None
+
+
+def _logit_probes(logits):
+    """Per-row (B,) numerics of the logits, one row at a time (a row's
+    softmax over the vocabulary is the largest temporary)."""
+    out = {"max_abs_logit": [], "softmax_entropy": [], "nonfinite_count": []}
+    for lf in logits.detach().float():
+        lse = torch.logsumexp(lf, dim=-1)
+        ent = lse - (torch.softmax(lf, dim=-1) * lf).sum(-1)
+        out["max_abs_logit"].append(lf.abs().max())
+        out["softmax_entropy"].append(ent.mean())
+        out["nonfinite_count"].append((~torch.isfinite(lf)).sum().float())
+    return {k: torch.stack(v) for k, v in out.items()}
 
 
 def lm_init(gen: torch.Generator, cfg):
     """Random parameters drawn from ``gen`` on its device, in f32 (the
     configs' ``param_dtype``)."""
     check_supported(cfg)
+    moe_idx = set(cfg.moe_layer_indices())
     params = {"embed": embedding_init(gen, cfg.vocab_size, cfg.d_model)}
-    params["layers"] = [block_init(gen, cfg) for _ in range(cfg.num_layers)]
+    params["layers"] = [block_init(gen, cfg, i in moe_idx)
+                        for i in range(cfg.num_layers)]
     params["final_norm"] = norm_init(cfg, cfg.d_model, gen.device)
     if not cfg.tie_embeddings and cfg.vocab_size:
         params["unembed"] = embedding_init(gen, cfg.vocab_size, cfg.d_model)
@@ -114,29 +188,86 @@ def lm_init(gen: torch.Generator, cfg):
 
 
 def lm_apply(params, cfg, tokens, *, positions=None, cache=None,
-             mode: str = "train", last_only: bool = False,
-             block_tables=None, paged_kernel: bool = False):
+             mode: str = "train", use_kernel: bool = False,
+             last_only: bool = False, block_tables=None,
+             paged_kernel: bool = False, telemetry: bool = False):
     """tokens: (B, S) int; positions: (S,) shared or (B, S) per-row
     (entries < 0 mark pad/inactive tokens that neither write nor read any
     cache). ``cache`` is the per-layer list of paged pools (updated in
     place) addressed through ``block_tables`` (B, blocks_per_row);
     ``paged_kernel`` streams paged single-token decode through the kernel.
+    ``use_kernel`` routes the Soft-MoE layers through the kernels.
     ``last_only`` unembeds only the final position. Returns (logits (B,
-    S|1, V) f32, cache, aux) like the JAX function; aux is 0 (no MoE)."""
+    S|1, V) f32, cache, aux), aux the sum of the blocks' auxiliary losses,
+    plus ``telem`` with ``telemetry``: ``{"layers": {key: block telemetry},
+    "logits": per-row probes}``, keyed by layer index, or on the
+    train-mode scan path by segment start with leaves stacked (count,)."""
     check_supported(cfg)
     x = embed(params["embed"], tokens, dtype_of(cfg.dtype))
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    for i, p in enumerate(params["layers"]):
-        x, _, _ = block_apply(
-            p, cfg, x, is_global=cfg.attention.is_global_layer(i),
-            positions=positions,
-            cache=None if cache is None else cache[i], mode=mode,
-            block_tables=block_tables, paged_kernel=paged_kernel,
-        )
+    aux = torch.zeros((), device=x.device)
+    layer_telem = {}
+    scan = cache is None and cfg.scan_layers and mode == "train"
+    remat = scan and cfg.remat and torch.is_grad_enabled()
+    for start, count, is_moe in segment_plan(cfg):
+        seg_telem = []
+        for i in range(start, start + count):
+            p = params["layers"][i]
+            is_global = cfg.attention.is_global_layer(i)
+            if scan:
+                x, a, t = _train_block(p, cfg, x, is_moe, is_global,
+                                       positions, use_kernel, telemetry,
+                                       remat)
+                seg_telem.append(t)
+            else:
+                out = block_apply(
+                    p, cfg, x, is_moe=is_moe, is_global=is_global,
+                    positions=positions,
+                    cache=None if cache is None else cache[i], mode=mode,
+                    use_kernel=use_kernel, block_tables=block_tables,
+                    paged_kernel=paged_kernel, telemetry=telemetry)
+                x, a = out[0], out[2]
+                if telemetry:
+                    layer_telem[i] = out[3]
+            aux = aux + a
+        if telemetry and scan:
+            layer_telem[start] = _stack_telemetry(seg_telem)
     if last_only:
         x = x[:, -1:]
     x = norm_apply(params["final_norm"], cfg, x)
     table = params["unembed"] if "unembed" in params else params["embed"]
     logits = unembed(table, x, cfg.logits_softcap)
-    return logits, cache, torch.zeros((), device=logits.device)
+    if not telemetry:
+        return logits, cache, aux
+    return logits, cache, aux, {"layers": layer_telem,
+                                "logits": _logit_probes(logits)}
+
+
+def lm_loss(params, cfg, batch, use_kernel: bool = False,
+            telemetry: bool = False):
+    """Next-token cross-entropy. batch: {"tokens": (B, S)[, "loss_mask"]}.
+    Returns (loss + aux, {"loss", "aux_loss"[, "telemetry"]}); the
+    telemetry tree of ``lm_apply`` leaves the loss unchanged."""
+    tokens = batch["tokens"]
+    out = lm_apply(params, cfg, tokens, mode="train", use_kernel=use_kernel,
+                   telemetry=telemetry)
+    logits, _, aux = out[:3]
+    nll = cross_entropy(logits[:, :-1], tokens[:, 1:])
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, 1:].float()
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        loss = nll.mean()
+    metrics = {"loss": loss, "aux_loss": aux}
+    if telemetry:
+        metrics["telemetry"] = out[3]
+    return loss + aux, metrics
+
+
+def cross_entropy(logits, targets):
+    """Per-token lse(logits) - logits[target], in f32."""
+    logits = logits.float()
+    picked = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - picked

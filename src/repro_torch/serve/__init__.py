@@ -8,6 +8,7 @@ cache backend.
   sampling      — batched per-request sampler (greedy/temp/top-k/top-p)
   scheduler     — host-side admission queue + slot state machine
   engine        — ServeEngine
+  telemetry     — host-side flattening of the model-interior telemetry
 """
 from .block_manager import BlockManager, PagedBackend  # noqa: F401
 from .engine import ServeEngine  # noqa: F401

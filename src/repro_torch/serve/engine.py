@@ -9,10 +9,10 @@ admitted) the tick it samples EOS or exhausts its budget. Decode
 attention runs the paged decode-attention kernel on CUDA
 (``use_kernel=True``, the default) or the gather path.
 
-Not ported yet: the contiguous backend, speculative decoding, span
-tracing, the flight recorder and model-interior telemetry (asking for
-them raises ``NotImplementedError``), and publishing generated tokens
-into the radix tree (the JAX engine's ``cache_generated``).
+Not ported yet: MoE LMs, the contiguous backend, speculative decoding,
+span tracing, the flight recorder and model-interior telemetry (asking
+for them raises ``NotImplementedError``), and publishing generated
+tokens into the radix tree (the JAX engine's ``cache_generated``).
 """
 from __future__ import annotations
 
@@ -86,6 +86,9 @@ class ServeEngine:
             if on:
                 raise NotImplementedError(f"{name} is not ported yet")
         check_supported(cfg)
+        if cfg.moe_layer_indices():
+            raise NotImplementedError(
+                f"{cfg.name}: serving MoE LMs is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = serving_params(params, cfg)

@@ -23,6 +23,7 @@ from typing import Any, Callable, List, Optional
 
 from ..checkpoint.manager import CheckpointManager
 from ..optim import OptimizerConfig
+from ..serve.telemetry import flatten_telemetry
 from .step import init_train_state, make_train_step
 
 
@@ -113,7 +114,14 @@ class Trainer:
                     raise RuntimeError("straggler abort -> restart")
             step += 1
             if step % self.cfg.log_every == 0:
+                # a telemetry loss (lm_loss(telemetry=True)) nests the
+                # model-interior stats under metrics["telemetry"]: they
+                # are logged as flat telemetry_<name> scalars
+                telem = metrics.pop("telemetry", None)
                 m = {k: float(v) for k, v in metrics.items()}
+                if telem is not None:
+                    m.update({f"telemetry_{k}": v
+                              for k, v in flatten_telemetry(telem).items()})
                 m["step"] = step
                 m["step_time"] = dt
                 self.metrics_history.append(m)

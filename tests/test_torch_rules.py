@@ -38,7 +38,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve, repro_torch.convert, "
             "repro_torch.kernels.build, repro_torch.kernels.ops, "
             "repro_torch.models, repro_torch.core, repro_torch.train, "
-            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint; "
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.core.inspection, repro_torch.serve.telemetry; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -84,6 +85,10 @@ def test_cuda_request_without_a_gpu_raises():
             "mu": vtree, "nu": vtree, "step": np.int32(0)}}, vcfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SyntheticImages(num_patches=4, patch_dim=8, batch_size=2)
+    from repro_torch.data import SyntheticLM
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyntheticLM(vocab_size=16, seq_len=4, batch_size=2)
     # the pool initialisers take no default device, and refuse CUDA
     for init in (init_paged_kv_cache, init_paged_cache):
         with pytest.raises(TypeError, match="device"):
@@ -104,20 +109,29 @@ def test_unported_engine_options_raise():
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, params, batch_size=2, max_len=32, device="cpu",
                         **kw)
-    with pytest.raises(NotImplementedError):
-        lm_init(torch.Generator(), reduced(get_config("qwen2-0.5b+soft")))
+    # the sparse-MoE LMs are not ported; Soft-MoE LMs train, but the
+    # engine does not serve them yet
+    with pytest.raises(NotImplementedError, match="not ported"):
+        lm_init(torch.Generator(), reduced(get_config("granite-moe-1b-a400m")))
+    soft = reduced(get_config("qwen2-0.5b+soft"))
+    soft_params = lm_init(torch.Generator().manual_seed(0), soft)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        ServeEngine(soft, soft_params, batch_size=2, max_len=32,
+                    device="cpu")
 
 
 def test_unported_moe_options_raise():
-    """K6 telemetry, the sparse variants and MoE LMs are not ported, and a
-    raw kernel has no backward of its own (the autograd Functions of
-    kernels/ops.py carry the gradient): each refuses, never runs half."""
+    """The sparse variants, the ablations and the sparse-MoE LMs are not
+    ported, and a raw kernel has no backward of its own (the autograd
+    Functions of kernels/ops.py carry the gradient; the routing-health
+    kernel carries none): each refuses, never runs half."""
     from repro_torch.configs import MoEConfig, get_config, reduced
-    from repro_torch.core import moe_apply, moe_init, soft_moe_apply
+    from repro_torch.core import moe_apply, moe_init
     from repro_torch.kernels.soft_moe_kernels import (
         combine_apply,
         combine_online,
         routing_fwd,
+        routing_health,
     )
     from repro_torch.models import lm_init
 
@@ -125,8 +139,6 @@ def test_unported_moe_options_raise():
     cfg = MoEConfig(variant="soft", num_experts=4, expert_d_ff=8)
     params = moe_init(gen, 16, cfg)
     x = torch.randn(2, 5, 16)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        soft_moe_apply(params, cfg, x, telemetry=True)
     for variant in ("tokens_choice", "experts_choice", "identity",
                     "uniform", "soft_uniform", "uniform_soft"):
         other = MoEConfig(variant=variant, num_experts=4, expert_d_ff=8)
@@ -134,9 +146,8 @@ def test_unported_moe_options_raise():
             moe_init(gen, 16, other)
         with pytest.raises(NotImplementedError, match="not ported"):
             moe_apply(params, other, x)
-    with pytest.raises(NotImplementedError):
-        lm_init(torch.Generator(),
-                reduced(get_config("granite-moe-1b-a400m+soft")))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        lm_init(torch.Generator(), reduced(get_config("granite-moe-1b-a400m")))
 
     # A kernel wrapper handed non-CPU tensors that need a gradient refuses
     # before anything else (differentiate through kernels/ops.py instead);
@@ -146,8 +157,10 @@ def test_unported_moe_options_raise():
     phi = torch.empty(16, 4, **meta)
     ys = torch.empty(2, 4, 16, **meta)
     stats = (torch.empty(2, 8, **meta), torch.empty(2, 8, **meta))
+    d_stats = (torch.empty(2, 4, **meta), torch.empty(2, 4, **meta))
     for call in (lambda: routing_fwd(xm, phi),
                  lambda: combine_apply(xm, phi, ys, stats),
-                 lambda: combine_online(xm, phi, ys)):
+                 lambda: combine_online(xm, phi, ys),
+                 lambda: routing_health(xm, phi, d_stats, stats)):
         with pytest.raises(NotImplementedError, match="kernels/ops.py"):
             call()

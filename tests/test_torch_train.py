@@ -431,9 +431,22 @@ def test_build_model_and_train_state():
         assert torch.equal(t, ref)
     with pytest.raises(NotImplementedError, match="ZeRO-1"):
         init_train_state(torch.Generator(), init, zero1=True)
-    for name in ("qwen2-0.5b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(reduced(get_config(name)))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_model(reduced(get_config("seamless-m4t-large-v2")))
+    # the decoder-only LM: (init, next-token loss, apply)
+    lcfg = reduced(get_config("qwen2-0.5b"))
+    init, loss_fn, apply_fn = build_model(lcfg)
+    params = init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, lcfg.vocab_size, (2, 9),
+                           generator=torch.Generator().manual_seed(1))
+    loss, metrics = loss_fn(params, {"tokens": tokens})
+    assert set(metrics) == {"loss", "aux_loss"}
+    assert float(loss) == float(metrics["loss"]) > 0
+    logits = apply_fn(params, {"tokens": tokens})[0]
+    assert logits.shape == (2, 9, lcfg.vocab_size)
+    nll = torch.nn.functional.cross_entropy(
+        logits[:, :-1].reshape(-1, lcfg.vocab_size), tokens[:, 1:].reshape(-1))
+    assert abs(float(loss) - float(nll)) < 1e-5
 
 
 def test_straggler_watchdog():
