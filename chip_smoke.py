@@ -29,19 +29,24 @@ prints no result line):
    computes its main output (the library yardstick) and the port's
    unfused einsum path of the same function, and reads each one's peak
    device memory above its inputs; K1 and K2 are also timed at the
-   granite layer's shapes.
+   granite layer's shapes beside the same SDPA call and einsum path.
 5. soft-moe backward kernels: holds K4 (dispatch backward) and K5
    (combine backward) against their plain PyTorch versions on the card at
    the B/16 layer in bf16 and f32, a ragged case (m = 45, d = 264, S = 40,
-   also at 16 x 8 blocks), L/16's d = 1024 and the granite layer (m =
-   2048, d = 1024, S = 32), with the forward residuals
-   from K1 and K2; checks that dX and dYs of a batched call equal batch-1
-   calls bitwise, that dPhi_n equals the row-order sum of the batch-1
-   dPhi_n's and is bitwise the same over two runs, and that malformed
-   operands raise; then times each kernel beside its bound, its plain
-   version, the backward of the ``scaled_dot_product_attention`` call of
-   phase 4 (the library yardstick) and the einsum path's backward; both
-   are also timed at the granite layer's shapes.
+   also at 16 x 8 blocks), L/16's d = 1024, a case over several token
+   chunks (``tuning.BWD_TILES`` token blocks, 64 tokens by default) with
+   a ragged last one and over two 128-slot tiles (m = 300, d = 264, S =
+   150) and the granite layer (m = 2048, d = 1024, S = 32), with the
+   forward residuals from K1 and K2; checks that dX and dYs of a batched
+   call equal batch-1 calls bitwise, that dPhi_n equals the row-order
+   sum of the batch-1 dPhi_n's and is bitwise the same over two runs,
+   and that malformed operands raise; then, at the B/16 and the granite
+   layer, times each kernel beside its bound at the f32 rate and the
+   bound of the work its tensor-core design runs, its plain version, the
+   backward of the ``scaled_dot_product_attention`` call of phase 4 (the
+   library yardstick) and the einsum path's backward, and profiles one
+   call's device time by launch. The build prints each body's
+   registers, shared memory and spills (ptxas).
 6. routing health: holds K6 (the Fig. 9 routing-health reductions from
    K1's saved stats) against its plain PyTorch version and against the
    chunked oracle ``core.inspection.routing_health_from_stats`` on the
@@ -112,15 +117,19 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# float32 rate outside the tensor cores (the kernel's arithmetic).
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the
+# float32 rate outside the tensor cores (the TPU kernels' arithmetic),
+# and the dense tensor-core rates of TF32 and bf16.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 
 KERNEL_SOURCES = {
     "paged_decode_attend": {
@@ -210,7 +219,8 @@ def kernel_label(line):
     """'name<bf16|f32, d-chunk>' from ptxas's 'Compiling entry function'
     line (a mangled name: its nested identifiers, each prefixed by its
     length, then its template arguments: the element type and, for the
-    Soft-MoE kernels, the chunk's 128-column count)."""
+    Soft-MoE kernels, the d-chunk's 128-column count (K1-K3) or the slot
+    tile's 32-slot count (K4, K5))."""
     import re
 
     mangled = line.split("'")[1] if "'" in line else line
@@ -228,7 +238,9 @@ def kernel_label(line):
     elif rest.startswith("If"):
         args.append("f32")
     nv = re.search(r"Li(\d+)E", rest)
-    if nv and not label.startswith("paged"):  # K7's is the head dim
+    if nv and label.endswith("bwd_kernel"):  # K4/K5: the slot tile
+        args.append(f"slot tile {32 * int(nv.group(1))}")
+    elif nv and not label.startswith("paged"):  # K7's is the head dim
         args.append(f"d-chunk {128 * int(nv.group(1))}")
     return label + (f"<{', '.join(args)}>" if args else "")
 
@@ -478,8 +490,65 @@ def soft_moe_bounds(x, s, kind):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def phase_soft_moe_kernels(torch):
+def softmoe_yardsticks(torch, x, phi_n, ys, flush, shape):
+    """The yardsticks of K1-K3 on these operands: ({kind: sdpa_options(...)},
+    {kind: the einsum path's call}) for kind "routing" and "combine"; logs
+    each backend's time, why the others refused, and the l2norm pre-pass.
+
+    The library yardstick: one scaled_dot_product_attention call computes
+    each kernel's main output. Dispatch (K1's slots) is SDPA(q = Phi_n^T,
+    k = l2norm(x), v = x), a softmax over tokens per slot; combine (K2/K3's
+    y) is SDPA(q = l2norm(x), k = Phi_n^T, v = Ys), a softmax over slots
+    per token; scale 1. SDPA takes one dtype, so Phi_n is cast to x's. The
+    operands are made before the timed call; l2norm(x) is the O(b m d)
+    pre-pass the kernels also run, timed on its own. Each backend is tried
+    on Phi_n^T broadcast over the rows and copied per row, and the fastest
+    call that runs is the yardstick. The einsum path is the port's unfused
+    path of the same functions (use_kernel=False in core/soft_moe.py): the
+    (b, m, S) weights, then the dispatch or the combine einsum."""
     from repro_torch.core.soft_moe import soft_moe_weights
+
+    b, m, d = x.shape
+    s = phi_n.shape[1]
+
+    def l2norm():
+        xf = x.float()
+        return (xf / (xf.norm(dim=-1, keepdim=True) + 1e-6)).to(x.dtype)
+
+    xn4, x4, ys4 = l2norm()[:, None], x[:, None], ys[:, None]
+    phi_b = phi_n.t().contiguous().to(x.dtype)[None, None].expand(b, 1, s,
+                                                                  d)
+    layouts = {"broadcast": phi_b, "copied": phi_b.contiguous()}
+    library = {
+        "routing": sdpa_options(torch, {k: (ph, xn4, x4)
+                                        for k, ph in layouts.items()}, flush),
+        "combine": sdpa_options(torch, {k: (xn4, ph, ys4)
+                                        for k, ph in layouts.items()}, flush),
+    }
+    norm_ms = time_ms(torch, l2norm, flush=flush)
+    for kind, (default, runs, refused) in library.items():
+        log(f"[softmoe] sdpa for {kind} ({shape}): "
+            f"default pick {default}; runs: "
+            + "; ".join(f"{k} {ms:.4f} ms" for k, (ms, _) in runs.items())
+            + f"; l2norm pre-pass {norm_ms:.4f} ms; refused: "
+            + "; ".join(f"{k}: {why}" for k, why in refused.items()))
+
+    phi3 = phi_n.reshape(d, s, 1)
+    one = torch.ones((), device="cuda")
+
+    def einsum_routing():
+        d_w, _ = soft_moe_weights(x, phi3, one)
+        return torch.einsum("bmd,bmnp->bnpd", x.float(), d_w).to(x.dtype)
+
+    def einsum_combine():
+        _, c_w = soft_moe_weights(x, phi3, one)
+        return torch.einsum("bnpd,bmnp->bmd", ys.float().reshape(b, s, 1, d),
+                            c_w).to(x.dtype)
+
+    return library, {"routing": einsum_routing, "combine": einsum_combine}
+
+
+def phase_soft_moe_kernels(torch):
     from repro_torch.kernels.soft_moe_kernels import (
         combine_apply,
         combine_apply_ref,
@@ -631,53 +700,8 @@ def phase_soft_moe_kernels(torch):
     }
     b, m, d = x.shape
     s = phi_n.shape[1]
-    # The library yardstick: one scaled_dot_product_attention call computes
-    # each kernel's main output. Dispatch (K1's slots) is SDPA(q = Phi_n^T,
-    # k = l2norm(x), v = x), a softmax over tokens per slot; combine
-    # (K2/K3's y) is SDPA(q = l2norm(x), k = Phi_n^T, v = Ys), a softmax
-    # over slots per token; scale 1. SDPA takes one dtype, so Phi_n is cast
-    # to x's. The operands are made before the timed call; l2norm(x) is the
-    # O(b m d) pre-pass the kernels also run, timed on its own. Each
-    # backend is tried on Phi_n^T broadcast over the rows and copied per
-    # row, and the fastest call that runs is the yardstick.
-    def l2norm():
-        xf = x.float()
-        return (xf / (xf.norm(dim=-1, keepdim=True) + 1e-6)).to(x.dtype)
-
-    xn4, x4, ys4 = l2norm()[:, None], x[:, None], ys[:, None]
-    phi_b = phi_n.t().contiguous().to(x.dtype)[None, None].expand(b, 1, s,
-                                                                  d)
-    layouts = {"broadcast": phi_b, "copied": phi_b.contiguous()}
-    library = {
-        "routing": sdpa_options(torch, {k: (ph, xn4, x4)
-                                        for k, ph in layouts.items()}, flush),
-        "combine": sdpa_options(torch, {k: (xn4, ph, ys4)
-                                        for k, ph in layouts.items()}, flush),
-    }
-    norm_ms = time_ms(torch, l2norm, flush=flush)
-    for kind, (default, runs, refused) in library.items():
-        log(f"[softmoe] sdpa for {kind} (b=64 m=196 d=768 S=128 bf16): "
-            f"default pick {default}; runs: "
-            + "; ".join(f"{k} {ms:.4f} ms" for k, (ms, _) in runs.items())
-            + f"; l2norm pre-pass {norm_ms:.4f} ms; refused: "
-            + "; ".join(f"{k}: {why}" for k, why in refused.items()))
-
-    # The port's einsum path of the same functions (use_kernel=False in
-    # core/soft_moe.py): the (b, m, S) weights, then the dispatch or the
-    # combine einsum.
-    phi3 = phi_n.reshape(d, s, 1)
-    one = torch.ones((), device="cuda")
-
-    def einsum_routing():
-        d_w, _ = soft_moe_weights(x, phi3, one)
-        return torch.einsum("bmd,bmnp->bnpd", x.float(), d_w).to(x.dtype)
-
-    def einsum_combine():
-        _, c_w = soft_moe_weights(x, phi3, one)
-        return torch.einsum("bnpd,bmnp->bmd", ys.float().reshape(b, s, 1, d),
-                            c_w).to(x.dtype)
-
-    einsum = {"routing": einsum_routing, "combine": einsum_combine}
+    library, einsum = softmoe_yardsticks(torch, x, phi_n, ys, flush,
+                                         "b=64 m=196 d=768 S=128 bf16")
 
     def peak_above(fn):
         """Peak device bytes fn() allocates above what is live before."""
@@ -720,20 +744,35 @@ def phase_soft_moe_kernels(torch):
 
     # K1 and K2 at the granite layer's shapes, as the LM training phase
     # runs them (b=8, m=2048, d=1024, S=32, bf16): 16 CTAs for K1's main
-    # kernel, two d-chunks
+    # kernel, two d-chunks; beside the same yardsticks as at B/16
     gx, gphi, gys, gstats = granite
+    shape = "b=8 m=2048 d=1024 S=32 bf16"
+    library, einsum = softmoe_yardsticks(torch, gx, gphi, gys, flush, shape)
     for name, kern, kind in (
             ("routing_fwd", lambda: routing_fwd(gx, gphi), "routing"),
             ("combine_apply", lambda: combine_apply(gx, gphi, gys, gstats),
              "combine")):
+        want = kern()[0] if name == "routing_fwd" else kern()
+        label, (library_ms, lib_call) = min(library[kind][1].items(),
+                                            key=lambda r: r[1][0])
+        lib_err = (lib_call()[:, 0].float() - want.float()).abs().max().item()
+        if lib_err > 2e-2:
+            raise AssertionError(f"sdpa ({label}) differs from {name} at "
+                                 f"the granite layer by {lib_err:.3e}")
         bound_ms, bound_by, nbytes, flops = soft_moe_bounds(
             gx, gphi.shape[1], kind)
         ms = time_ms(torch, kern, flush=flush)
-        log(f"[softmoe] {name} timing at the granite layer (b=8 m=2048 "
-            f"d=1024 S=32 bf16, L2 flushed): kernel_ms={ms:.4f} "
+        einsum_ms = time_ms(torch, einsum[kind], flush=flush)
+        log(f"[softmoe] {name} timing at the granite layer ({shape}, L2 "
+            f"flushed): kernel_ms={ms:.4f} library_ms={library_ms:.4f} "
+            f"(scaled_dot_product_attention, {label}; max|sdpa - kernel| "
+            f"{lib_err:.3e}) einsum_path_ms={einsum_ms:.4f} "
             f"bound={bound_ms * 1e3:.2f} us ({bound_by}: "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> "
             f"{flops / ms / 1e9:.2f} TFLOP/s")
+        out[name]["granite"] = {"ms": ms, "bound_ms": bound_ms,
+                                "library_ms": library_ms,
+                                "einsum_path_ms": einsum_ms}
     return out
 
 
@@ -811,6 +850,31 @@ def soft_moe_bwd_bounds(x, s, kind):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def soft_moe_bwd_design_bound(x, s, kind):
+    """Least time on the card for the work the tensor-core design of K4
+    and K5 runs (csrc/soft_moe_bwd.cuh): its five products of 2 m S d
+    flops a row each, as passes on the tensor cores at their dense peaks
+    (bf16 x: the bf16 x . g or g . Ys product one bf16 pass, the other
+    four 9 TF32 passes; f32 x: 14 TF32 passes), against the bytes of
+    soft_moe_bwd_bounds plus the chunk partials (b, n_chunks, S, d) f32,
+    written once and read once (K4: dPhi_n's; K5: dPhi_n's and dYs')."""
+    from repro_torch.kernels.tuning import BWD_TILES, default_config
+
+    b, m, d = x.shape
+    unit = 2.0 * b * m * s * d
+    if x.element_size() == 2:
+        t_ops = 9 * unit / TF32_FLOPS + unit / BF16_FLOPS
+    else:
+        t_ops = 14 * unit / TF32_FLOPS
+    ct = BWD_TILES * default_config(m, d, s).block_tokens
+    part = b * -(-m // ct) * s * d * 4
+    nbytes = (soft_moe_bwd_bounds(x, s, kind)[2]
+              + 2 * part * (1 if kind == "dispatch" else 2))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, t_ops)
+
+
 def bwd_case(torch, seed, b, m, d, s, dtype, cfg):
     """The backward kernels' operands on the card: the forward's residuals
     from K1 and K2 (slots, both stats pairs, y) and random gradients."""
@@ -828,14 +892,17 @@ def bwd_case(torch, seed, b, m, d, s, dtype, cfg):
 
 
 def phase_soft_moe_bwd_kernels(torch):
-    from repro_torch.core.soft_moe import soft_moe_weights
     from repro_torch.kernels.soft_moe_kernels import (
         combine_bwd,
         combine_bwd_ref,
         dispatch_bwd,
         dispatch_bwd_ref,
     )
-    from repro_torch.kernels.tuning import KernelConfig, d_chunk
+    from repro_torch.kernels.tuning import (
+        BWD_TILES,
+        KernelConfig,
+        default_config,
+    )
 
     # Tolerances, on max |got - want| / max |want| per output: f32 within
     # 1e-5 (the two sides sum in other orders); bf16 outputs elementwise
@@ -855,6 +922,11 @@ def phase_soft_moe_bwd_kernels(torch):
          torch.bfloat16, KernelConfig(block_tokens=16, block_slots=8)),
         # L/16's width: two 768-column chunks
         ("L/16 layer d1024 bf16", 8, 196, 1024, 128, torch.bfloat16, None),
+        # several token chunks with a ragged last one (300 = 4 x 64 + 44),
+        # two slot tiles with a ragged last one (150 = 128 + 22), a ragged
+        # last d-tile (264 = 8 x 32 + 8)
+        ("chunks m300 d264 S150 f32", 2, 300, 264, 150, torch.float32,
+         None),
         # granite-moe-1b-a400m+soft's layer at seq 2048
         ("granite layer bf16", 8, 2048, 1024, 32, torch.bfloat16, None),
     ]
@@ -867,6 +939,19 @@ def phase_soft_moe_bwd_kernels(torch):
             return diff.max().item(), rel, rel <= 1e-5
         ok = bool((diff <= 2.0**-7 * want.float().abs() + 1e-5 * top).all())
         return diff.max().item(), rel, ok
+
+    # the main kernels' dynamic shared memory a CTA (ptxas prints their
+    # registers and spills in the build phase)
+    import ctypes
+
+    from repro_torch.kernels.build import load
+    for lib in ("soft_moe_dispatch_bwd", "soft_moe_combine_bwd"):
+        fn = getattr(load(lib), f"{lib}_smem_bytes")
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        log(f"[softmoe-bwd] {lib} shared memory a CTA: " + ", ".join(
+            f"{dn} S={s}: {fn(code, s)} B" for dn, code in (("bf16", 1),
+                                                           ("f32", 0))
+            for s in (32, 64, 128)))
 
     main, granite = {}, None
     for i, (label, b, m, d, s, dt, kcfg) in enumerate(cases):
@@ -909,8 +994,10 @@ def phase_soft_moe_bwd_kernels(torch):
         again5 = combine_bwd(*args5, kcfg)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b_) for a, b_ in zip(again4 + again5, outs))
+        ct = BWD_TILES * (kcfg or default_config(m, d, s)).block_tokens
         log(f"[softmoe-bwd] {label}: b={b} m={m} d={d} S={s} "
-            f"{str(dt).replace('torch.', '')} d_chunk={d_chunk(d)} "
+            f"{str(dt).replace('torch.', '')} chunks={-(-m // ct)} of "
+            f"{ct} tokens "
             "max|diff|/max|ref|: "
             + " ".join(f"{k}={v:.3e}" for k, v in errs.items()
                        if not k.endswith("abs"))
@@ -966,24 +1053,81 @@ def phase_soft_moe_bwd_kernels(torch):
     if counts() != before:
         raise AssertionError("a malformed call launched a kernel")
 
-    # Times at the B/16 layer's shapes (b=64, m=196, d=768, S=128, bf16).
+    # Times at the B/16 layer's shapes (b=64, m=196, d=768, S=128, bf16),
+    # then at the granite layer's (b=8, m=2048, d=1024, S=32, bf16), each
+    # beside its bound, its plain version, the SDPA backward and the
+    # einsum path's backward.
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    out = {}
+    for c, shape in ((c, "b=64 m=196 d=768 S=128 bf16"),
+                     (granite, "b=8 m=2048 d=1024 S=32 bf16")):
+        args4 = (c["x"], c["phi_n"], c["g_slots"], c["d_stats"], c["slots"])
+        args5 = (c["x"], c["phi_n"], c["ys"], c["g"], c["c_stats"], c["y"])
+        calls = {
+            "dispatch_bwd": (lambda a=args4: dispatch_bwd(*a),
+                             lambda a=args4: dispatch_bwd_ref(*a), "dispatch"),
+            "combine_bwd": (lambda a=args5: combine_bwd(*a),
+                            lambda a=args5: combine_bwd_ref(*a), "combine"),
+        }
+        library, einsum = softmoe_bwd_yardsticks(torch, c, flush, shape)
+        for name, (kern, plain, kind) in calls.items():
+            kernel_ms = time_ms(torch, kern, flush=flush)
+            plain_ms = time_ms(torch, plain, reps=3, flush=flush)
+            einsum_ms = time_ms(torch, einsum[kind], flush=flush)
+            label, library_ms = min(library[kind][0].items(),
+                                    key=lambda r: r[1])
+            bound_ms, bound_by, nbytes, flops = soft_moe_bwd_bounds(
+                c["x"], c["phi_n"].shape[1], kind)
+            design_ms, design_by, d_bytes, d_ops = soft_moe_bwd_design_bound(
+                c["x"], c["phi_n"].shape[1], kind)
+            log(f"[softmoe-bwd] {name} timing ({shape}, L2 flushed): "
+                f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={library_ms:.4f} (scaled_dot_product_attention "
+                f"backward, {label}) einsum_path_bwd_ms={einsum_ms:.4f} "
+                f"bound={bound_ms * 1e3:.2f} us ({bound_by}: "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the f32 "
+                f"rate) -> {flops / kernel_ms / 1e9:.2f} TFLOP/s of the "
+                f"least work; design bound={design_ms * 1e3:.2f} us "
+                f"({design_by}: {d_bytes / 1e6:.1f} MB with the chunk "
+                f"partials, {d_ops * 1e6:.2f} us of tensor-core passes)")
+            # device time of one call by launch: the norm pre-pass, the
+            # main kernel, the partial sums and the wrapper's torch ops
+            _, prof = profile_ticks(torch, types.SimpleNamespace(step=kern), 5)
+            log(f"[softmoe-bwd] {name} device time of one call by kernel "
+                f"({shape}): " + "; ".join(
+                    f"{kname[:60]} {us / 5:.1f} us x{n // 5}"
+                    for kname, us, n in prof))
+            row = {"ms": kernel_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms, "einsum_path_ms": einsum_ms,
+                   "design_bound_ms": design_ms}
+            if c is granite:
+                out[name]["granite"] = row
+            else:
+                out[name] = {"max_abs_err": main["err"][name], **row}
+    return out
+
+
+def softmoe_bwd_yardsticks(torch, c, flush, shape):
+    """The yardsticks of K4 and K5 on the operands of case ``c``:
+    ({kind: sdpa_bwd_options(...)}, {kind: the einsum path's backward}) for
+    kind "dispatch" and "combine"; logs each backend's time and why the
+    others refused.
+
+    The library yardstick: the backward alone of the
+    scaled_dot_product_attention call that computes each forward
+    (dispatch: q = Phi_n^T, k = l2norm(x), v = x; combine: q = l2norm(x),
+    k = Phi_n^T, v = Ys; scale 1; Phi_n in x's dtype), as
+    torch.autograd.grad over a retained graph given the same output
+    gradient; the forward runs outside the timed window. The einsum path
+    is the port's unfused path of the same functions (use_kernel=False in
+    core/soft_moe.py), its backward alone over a retained graph."""
+    from repro_torch.core.soft_moe import soft_moe_weights
+
+    x, phi_n, g_slots, g, ys = (c[k] for k in ("x", "phi_n", "g_slots", "g",
+                                               "ys"))
     b, m, d = x.shape
     s = phi_n.shape[1]
-    args4 = (x, phi_n, g_slots, c["d_stats"], c["slots"])
-    args5 = (x, phi_n, c["ys"], g, c["c_stats"], c["y"])
-    calls = {
-        "dispatch_bwd": (lambda: dispatch_bwd(*args4),
-                         lambda: dispatch_bwd_ref(*args4), "dispatch"),
-        "combine_bwd": (lambda: combine_bwd(*args5),
-                        lambda: combine_bwd_ref(*args5), "combine"),
-    }
-    # The library yardstick: the backward alone of the
-    # scaled_dot_product_attention call that computes each forward
-    # (dispatch: q = Phi_n^T, k = l2norm(x), v = x; combine: q = l2norm(x),
-    # k = Phi_n^T, v = Ys; scale 1; Phi_n in x's dtype), as
-    # torch.autograd.grad over a retained graph given the same output
-    # gradient; the forward runs outside the timed window.
     xf = x.float()
     xn = (xf / (xf.norm(dim=-1, keepdim=True) + 1e-6)).to(x.dtype)
     phi_t = phi_n.t().contiguous().to(x.dtype)[None, None]
@@ -994,18 +1138,15 @@ def phase_soft_moe_bwd_kernels(torch):
             torch, {k: (f(phi_t), xn[:, None], x[:, None])
                     for k, f in layouts.items()}, g_slots[:, None], flush),
         "combine": sdpa_bwd_options(
-            torch, {k: (xn[:, None], f(phi_t), c["ys"][:, None])
+            torch, {k: (xn[:, None], f(phi_t), ys[:, None])
                     for k, f in layouts.items()}, g[:, None], flush),
     }
     for kind, (runs, refused) in library.items():
-        log(f"[softmoe-bwd] sdpa backward for {kind} (b=64 m=196 d=768 "
-            f"S=128 bf16): runs: "
+        log(f"[softmoe-bwd] sdpa backward for {kind} ({shape}): runs: "
             + "; ".join(f"{k} {ms:.4f} ms" for k, ms in runs.items())
             + "; refused: "
             + "; ".join(f"{k}: {why}" for k, why in refused.items()))
 
-    # The port's einsum path of the same functions (use_kernel=False in
-    # core/soft_moe.py), its backward alone over a retained graph.
     def einsum_bwd(kind):
         xe = x.detach().requires_grad_()
         phie = phi_n.reshape(d, s, 1).detach().requires_grad_()
@@ -1015,7 +1156,7 @@ def phase_soft_moe_bwd_kernels(torch):
             out = torch.einsum("bmd,bmnp->bnpd", xe.float(), d_w).to(x.dtype)
             grad, wrt = g_slots.reshape(b, s, 1, d), (xe, phie)
         else:
-            yse = c["ys"].detach().requires_grad_()
+            yse = ys.detach().requires_grad_()
             _, c_w = soft_moe_weights(xe, phie, one)
             out = torch.einsum("bnpd,bmnp->bmd",
                                yse.float().reshape(b, s, 1, d),
@@ -1023,46 +1164,7 @@ def phase_soft_moe_bwd_kernels(torch):
             grad, wrt = g, (xe, phie, yse)
         return lambda: torch.autograd.grad(out, wrt, grad, retain_graph=True)
 
-    out = {}
-    for name, (kern, plain, kind) in calls.items():
-        kernel_ms = time_ms(torch, kern, flush=flush)
-        plain_ms = time_ms(torch, plain, reps=3, flush=flush)
-        einsum_ms = time_ms(torch, einsum_bwd(kind), flush=flush)
-        runs = library[kind][0]
-        label, library_ms = min(runs.items(), key=lambda r: r[1])
-        bound_ms, bound_by, nbytes, flops = soft_moe_bwd_bounds(x, s, kind)
-        log(f"[softmoe-bwd] {name} timing (b=64 m=196 d=768 S=128 bf16, L2 "
-            f"flushed): kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} (scaled_dot_product_attention "
-            f"backward, {label}) einsum_path_bwd_ms={einsum_ms:.4f} "
-            f"bound={bound_ms * 1e3:.2f} us ({bound_by}: "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> "
-            f"{flops / kernel_ms / 1e9:.2f} TFLOP/s of the least work")
-        out[name] = {"max_abs_err": main["err"][name], "ms": kernel_ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms,
-                     "einsum_path_ms": einsum_ms}
-
-    # K4 and K5 at the granite layer's shapes, as the LM training phase
-    # runs them (b=8, m=2048, d=1024, S=32, bf16): the slot-major bodies
-    # have b x 1 x 2 CTAs
-    g = granite
-    for name, kern, kind in (
-            ("dispatch_bwd", lambda: dispatch_bwd(
-                g["x"], g["phi_n"], g["g_slots"], g["d_stats"], g["slots"]),
-             "dispatch"),
-            ("combine_bwd", lambda: combine_bwd(
-                g["x"], g["phi_n"], g["ys"], g["g"], g["c_stats"], g["y"]),
-             "combine")):
-        bound_ms, bound_by, nbytes, flops = soft_moe_bwd_bounds(
-            g["x"], g["phi_n"].shape[1], kind)
-        ms = time_ms(torch, kern, flush=flush)
-        log(f"[softmoe-bwd] {name} timing at the granite layer (b=8 m=2048 "
-            f"d=1024 S=32 bf16, L2 flushed): kernel_ms={ms:.4f} "
-            f"bound={bound_ms * 1e3:.2f} us ({bound_by}: "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> "
-            f"{flops / ms / 1e9:.2f} TFLOP/s of the least work")
-    return out
+    return library, {k: einsum_bwd(k) for k in ("dispatch", "combine")}
 
 
 def sdpa_bwd_options(torch, operands, grad_out, flush):
@@ -1393,8 +1495,9 @@ def kernel_kind(name):
         return "K4 dispatch backward"
     if "combine_bwd" in name:
         return "K5 combine backward"
-    if "norms_kernel" in name or "dphi_reduce_kernel" in name:
-        return "K4/K5 norm pre-pass and dPhi_n row sum"
+    if any(k in name for k in ("prepass_kernel", "dphi_reduce_kernel",
+                               "chunk_sum_kernel")):
+        return "K4/K5 pre-pass and partial sums"
     if "routing_kernel" in name or "merge_kernel" in name:
         return "K1 routing"
     if "combine_kernel" in name:

@@ -19,92 +19,88 @@
 // No (m x S) tensor reaches device memory.
 //
 // What bounds it on the H100: arithmetic. At the Soft-MoE B/16 layer
-// (B=64, m=196, d=768, S=128, bf16) the least work is 10 m S d f32 FLOP a
-// row (logits, g . Ys, dL Phi_n^T, C^T g, X^T dL): 12.3 GFLOP, ~184 us at
-// 67 TFLOP/s, against ~83 MB of bytes (~25 us at 3.35 TB/s). This split
-// does 16 m S d: the dX, dYs and dPhi_n kernels each recompute the logits,
-// and two of them g . Ys.
+// (B=64, m=196, d=768, S=128, bf16) the work is 10 m S d flops a row
+// (the logits, g . Ys, dL Phi_n^T, C^T g, X^T dL): 12.3 GFLOP, ~184 us at
+// the f32 rate of 67 TFLOP/s, against ~83 MB of bytes (~25 us at 3.35
+// TB/s). On the tensor cores (soft_moe_bwd.cuh) the logits take two TF32
+// passes, g . Ys one bf16 pass, dL Phi_n^T three, C^T g and X^T dL two
+// each: ~47 us at the dense TF32 and bf16 peaks; the design's bytes (the
+// chunk partials of dYs and dPhi_n, 2 x 101 MB written and read) take
+// ~145 us.
 //
-// Design (soft_moe_bwd.cuh): a norm pre-pass; dX from one CTA per
-// (d-chunk, token block, row) looping over slot blocks; dYs, and the
-// dPhi_n^T partials, from one CTA per (d-chunk, slot block, row) looping
-// over token blocks, as two launches of one body (each output's (32 x 768)
-// f32 accumulator takes 96 registers a thread: both would spill); the
-// partials are summed over rows in row order by a last kernel. No atomics.
+// Design (soft_moe_bwd.cuh): a pre-pass (the norms and rho); one CTA per
+// (token chunk, row) that builds C and rn dL for its chunk once, as the
+// TPU kernel's _combine_bwd_dys_dphi_kernel does for dYs and dPhi_n in
+// one body, and writes dX and the chunk's dYs and dPhi_n^T partials; two
+// more kernels sum the partials, each row's chunks in chunk order (dYs)
+// and, for dPhi_n, the row totals in row order. No atomics.
 #include "soft_moe_bwd.cuh"
 
 namespace {
 
 using namespace smoe;
 
-template <typename T, int NV>
-__global__ void __launch_bounds__(kThreads, 2)
-    combine_bwd_dx_kernel(BwdArgs a) {
-  bwd_dx_body<T, NV, false>(a);
+template <typename T, int SC>
+__global__ void __launch_bounds__(kThreads, min_ctas<T, SC>())
+    combine_bwd_kernel(BwdArgs a) {
+  bwd_body<T, SC, true>(a);
 }
 
-template <typename T, int NV>
-__global__ void __launch_bounds__(kThreads, 2)
-    combine_bwd_dys_kernel(BwdArgs a) {
-  bwd_slot_body<T, NV, kCombineDys>(a);
-}
-
-template <typename T, int NV>
-__global__ void __launch_bounds__(kThreads, 2)
-    combine_bwd_dphi_kernel(BwdArgs a) {
-  bwd_slot_body<T, NV, kCombineDphi>(a);
-}
-
-template <typename T, int NV>
+template <typename T, int SC>
 cudaError_t launch(const BwdArgs& a, int B, cudaStream_t stream) {
-  constexpr int DC = 128 * NV;
-  const unsigned nc = (a.d + DC - 1) / DC;
-  const dim3 slot_grid(nc, (a.S + a.bs - 1) / a.bs, B);
-  cudaError_t e = launch_body(combine_bwd_dx_kernel<T, NV>,
-                              dim3(nc, (a.m + a.bt - 1) / a.bt, B),
-                              dx_smem_bytes<NV>(), a, stream);
-  if (e != cudaSuccess) return e;
-  e = launch_body(combine_bwd_dys_kernel<T, NV>, slot_grid,
-                  slot_smem_bytes<NV>(), a, stream);
-  if (e != cudaSuccess) return e;
-  return launch_body(combine_bwd_dphi_kernel<T, NV>, slot_grid,
-                     slot_smem_bytes<NV>(), a, stream);
+  const unsigned nch = (a.m + a.ct - 1) / a.ct;
+  return launch_bwd(combine_bwd_kernel<T, SC>, dim3(nch, B),
+                    BwdLayout<T, SC, true>::kBytes, a, stream);
 }
 
 template <typename T>
-cudaError_t launch_dc(const BwdArgs& a, int B, int d_chunk,
-                      cudaStream_t stream) {
-  switch (d_chunk) {
-    case 128: return launch<T, 1>(a, B, stream);
-    case 256: return launch<T, 2>(a, B, stream);
-    case 384: return launch<T, 3>(a, B, stream);
-    default: return launch<T, 6>(a, B, stream);
+cudaError_t launch_all(const BwdArgs& a, void* dys, int B,
+                       cudaStream_t stream) {
+  cudaError_t e;
+  switch (slot_tile_units(a.S)) {
+    case 1: e = launch<T, 1>(a, B, stream); break;
+    case 2: e = launch<T, 2>(a, B, stream); break;
+    default: e = launch<T, 4>(a, B, stream); break;
   }
+  if (e != cudaSuccess) return e;
+  const int nch = (a.m + a.ct - 1) / a.ct;
+  const long long n = (long long)a.S * a.d;
+  chunk_sum_kernel<T><<<(unsigned)((B * n + kThreads - 1) / kThreads),
+                        kThreads, 0, stream>>>(a.part_ys,
+                                               static_cast<T*>(dys), B, nch,
+                                               n);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. dtype code of x, ys, g, dx and dys: 0 =
-// float32, 1 = bfloat16; Phi_n, the statistics, rho and dPhi_n are
-// float32. Every pointer is a device pointer: rn and inv_n (B*m floats
-// each) and dphi_part (B*S*d floats) are scratch the caller allocates.
-// `stream` is a cudaStream_t. Launches the norm pre-pass, the dX, dYs and
-// dPhi_n-partial kernels and the partials' row sum, and returns the first
-// cudaError_t (0 = success). Shapes the kernels do not take (bt or bs
-// outside 1..32, d_chunk not 128, 256, 384 or 768, d not a multiple of 8,
-// operands not 16-byte aligned) return cudaErrorInvalidValue without
-// launching.
+// Plain C entry point for ctypes. dtype code of x, ys, g, y, dx and dys:
+// 0 = float32, 1 = bfloat16; Phi_n, the statistics and dPhi_n are
+// float32. Every pointer is a device pointer: rn, inv_n and rho (B*m
+// floats each), part_phi and part_ys (B * ceil(m / ct) * S * d floats
+// each) and, when S > 128, dx_acc (B*m*d floats; may be null otherwise)
+// are scratch the caller allocates. ct is the tokens of a chunk (1..64).
+// `stream` is a cudaStream_t. Launches the pre-pass (the norms and rho =
+// g . y), the main kernel and the partials' sums, and returns the first
+// cudaError_t (0 = success). Shapes the kernels do not take (ct outside
+// 1..64, d not a multiple of 8, operands not 16-byte aligned) return
+// cudaErrorInvalidValue without launching.
 extern "C" int soft_moe_combine_bwd_launch(
     const void* x, const void* phi, const void* ys, const void* g,
-    const void* c_mx, const void* c_den, const void* rho, void* dx,
-    void* dphi, void* dys, void* rn, void* inv_n, void* dphi_part, int dtype,
-    int B, int m, int d, int S, int bt, int bs, int d_chunk, void* stream) {
-  if (!bwd_shapes_ok(dtype, B, m, d, S, bt, bs, d_chunk) || !aligned16(x) ||
+    const void* y, const void* c_mx, const void* c_den, void* dx, void* dphi,
+    void* dys, void* rn, void* inv_n, void* rho, void* dx_acc,
+    void* part_phi, void* part_ys, int dtype, int B, int m, int d, int S,
+    int ct, void* stream) {
+  if (!bwd_shapes_ok(dtype, B, m, d, S, ct) || !aligned16(x) ||
       !aligned16(ys) || !aligned16(g) || !aligned16(dx) || !aligned16(dys) ||
-      !aligned16(dphi_part)) {
+      !aligned16(part_phi) || !aligned16(part_ys) ||
+      (S > 128 && (dx_acc == nullptr || !aligned16(dx_acc)))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* rn_f = static_cast<float*>(rn);
+  float* inv_f = static_cast<float*>(inv_n);
+  float* rho_f = static_cast<float*>(rho);
   BwdArgs a;
   a.x = x;
   a.phi = static_cast<const float*>(phi);
@@ -112,32 +108,39 @@ extern "C" int soft_moe_combine_bwd_launch(
   a.ys = ys;
   a.mx = static_cast<const float*>(c_mx);
   a.den = static_cast<const float*>(c_den);
-  a.rowdot = static_cast<const float*>(rho);
-  a.rn = static_cast<const float*>(rn);
-  a.inv_n = static_cast<const float*>(inv_n);
+  a.rowdot = rho_f;
+  a.rn = rn_f;
+  a.inv_n = inv_f;
   a.dx = dx;
-  a.dys = dys;
-  a.dphi_part = static_cast<float*>(dphi_part);
+  a.dx_acc = static_cast<float*>(dx_acc);
+  a.part_phi = static_cast<float*>(part_phi);
+  a.part_ys = static_cast<float*>(part_ys);
   a.m = m;
   a.d = d;
   a.S = S;
-  a.bt = bt;
-  a.bs = bs;
+  a.ct = ct;
+  a.phi_vec = S % 4 == 0 && aligned16(phi);
+  const int nch = (m + ct - 1) / ct;
   if (B > 0) {
-    const long long n_tokens = (long long)B * m;
+    const long long n_tok = (long long)B * m;
     cudaError_t e =
         dtype == 0
-            ? launch_norms<float>(x, static_cast<float*>(rn),
-                                  static_cast<float*>(inv_n), n_tokens, d, s)
-            : launch_norms<__nv_bfloat16>(x, static_cast<float*>(rn),
-                                          static_cast<float*>(inv_n),
-                                          n_tokens, d, s);
+            ? launch_prepass<float>(x, rn_f, inv_f, n_tok, g, y, rho_f, n_tok,
+                                    d, s)
+            : launch_prepass<__nv_bfloat16>(x, rn_f, inv_f, n_tok, g, y,
+                                            rho_f, n_tok, d, s);
     if (e != cudaSuccess) return (int)e;
-    e = dtype == 0 ? launch_dc<float>(a, B, d_chunk, s)
-                   : launch_dc<__nv_bfloat16>(a, B, d_chunk, s);
+    e = dtype == 0 ? launch_all<float>(a, dys, B, s)
+                   : launch_all<__nv_bfloat16>(a, dys, B, s);
     if (e != cudaSuccess) return (int)e;
   }
   // B = 0 still writes dPhi_n: an empty sum is 0.
-  return (int)launch_dphi_reduce(a.dphi_part, static_cast<float*>(dphi), B, S,
-                                 d, s);
+  return (int)launch_dphi_reduce(a.part_phi, static_cast<float*>(dphi), B,
+                                 nch, S, d, s);
+}
+
+// Dynamic shared memory (bytes) of one CTA of the main kernel for x's
+// dtype code and S slots, as the launch asks for it.
+extern "C" int soft_moe_combine_bwd_smem_bytes(int dtype, int S) {
+  return bwd_smem_bytes<true>(dtype, S);
 }

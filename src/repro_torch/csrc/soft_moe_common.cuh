@@ -1,13 +1,15 @@
 // Shared pieces of the Soft-MoE kernels for Hopper (sm_90a): K1 routing
-// (soft_moe_routing.cu), K2/K3 combine (soft_moe_combine.cu) and the
-// backward kernels K4/K5 (soft_moe_bwd.cuh).
+// (soft_moe_routing.cu), K2/K3 combine (soft_moe_combine.cu), K6 routing
+// health (soft_moe_routing_health.cu) and, for their constants and
+// conversions, the backward kernels K4/K5 (soft_moe_bwd.cuh).
 //
-// Both contract a (tokens x d) tile against Phi_n (d x slots) into a
-// 32 x 32 tile of logits l2norm(x) . Phi_n, in f32 on the CUDA cores (the
-// TPU kernels cast x and Phi_n to f32 before the dot, _logits_tile in
-// src/repro/kernels/soft_moe_kernels.py:90-96). The inverse L2 norm of
-// every token comes from a pre-pass (inv_norm_kernel), and a logit is
-// rn[t] * (x[t] . phi[:, s]): the dot runs over the whole of d in order.
+// The forward kernels contract a (tokens x d) tile against Phi_n (d x
+// slots) into a 32 x 32 tile of logits l2norm(x) . Phi_n, in f32 on the
+// CUDA cores (the TPU kernels cast x and Phi_n to f32 before the dot,
+// _logits_tile in src/repro/kernels/soft_moe_kernels.py:90-96). The
+// inverse L2 norm of every token comes from a pre-pass (inv_norm_kernel),
+// and a logit is rn[t] * (x[t] . phi[:, s]): the dot runs over the whole
+// of d in order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -160,77 +162,6 @@ __device__ __forceinline__ void store_logits(float* L, const float dot[2][2],
 // NV in {1, 2, 3, 6}.
 inline bool valid_d_chunk(int dc) {
   return dc == 128 || dc == 256 || dc == 384 || dc == 768;
-}
-
-// Staging buffers of one tile of row dots.
-struct RowsSmem {
-  float a[kKc][kTile + 2];  // A sub-tile transposed, [k][row]
-  float b[kKc][kTile + 2];  // B sub-tile transposed, [k][row]
-};
-
-// dot[i][j] = a[2ty+i, :] . b[2tx+j, :] over the whole of d, in d order,
-// for thread (ty, tx) = (tid / 16, tid % 16): a and b are row-major with
-// row stride d (the backward's x . g_slots and g . Ys tiles). Rows >= na
-// of a and >= nb of b are staged as zeros. Ends synchronised.
-template <typename T>
-__device__ __forceinline__ void rows_dot_tile(const T* a, int na, const T* b,
-                                              int nb, int d, RowsSmem& sm,
-                                              float dot[2][2], int tid) {
-  const int ty = tid >> 4, tx = tid & 15;
-  dot[0][0] = dot[0][1] = dot[1][0] = dot[1][1] = 0.f;
-  for (int k0 = 0; k0 < d; k0 += kKc) {
-    for (int i = tid; i < kTile * kKc; i += kThreads) {
-      const int r = i / kKc, k = i - r * kKc;  // lanes along d: coalesced
-      const int c = k0 + k;
-      sm.a[k][r] = (r < na && c < d) ? to_f32(a[(size_t)r * d + c]) : 0.f;
-      sm.b[k][r] = (r < nb && c < d) ? to_f32(b[(size_t)r * d + c]) : 0.f;
-    }
-    __syncthreads();
-    const int kn = min(kKc, d - k0);
-    for (int k = 0; k < kn; ++k) {
-      const float2 u = *reinterpret_cast<const float2*>(&sm.a[k][2 * ty]);
-      const float2 v = *reinterpret_cast<const float2*>(&sm.b[k][2 * tx]);
-      dot[0][0] = fmaf(u.x, v.x, dot[0][0]);
-      dot[0][1] = fmaf(u.x, v.y, dot[0][1]);
-      dot[1][0] = fmaf(u.y, v.x, dot[1][0]);
-      dot[1][1] = fmaf(u.y, v.y, dot[1][1]);
-    }
-    __syncthreads();
-  }
-}
-
-// The backward's norm pre-pass: rn[i] = 1 / (||x_i|| + eps), exactly as
-// inv_norm_kernel computes it, and inv_n[i] = 1 / max(||x_i||, eps), or 0
-// where ||x_i|| = 0 (the l2-norm VJP of _l2n_bwd in the TPU kernels).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    norms_kernel(const T* x, float* rn, float* inv_n, long long n_tokens,
-                 int d) {
-  const long long tok =
-      (long long)blockIdx.x * kWarps + (long long)(threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (tok >= n_tokens) return;  // warp-uniform
-  const T* row = x + tok * (long long)d;
-  float s = 0.f;
-  for (int k = lane; k < d; k += 32) {
-    const float v = to_f32(row[k]);
-    s = fmaf(v, v, s);
-  }
-  s = warp_sum(s);
-  if (lane == 0) {
-    const float n = sqrtf(s);
-    rn[tok] = 1.f / (n + kEps);
-    inv_n[tok] = n > 0.f ? 1.f / fmaxf(n, kEps) : 0.f;
-  }
-}
-
-template <typename T>
-cudaError_t launch_norms(const void* x, float* rn, float* inv_n,
-                         long long n_tokens, int d, cudaStream_t stream) {
-  const long long blocks = (n_tokens + kWarps - 1) / kWarps;
-  norms_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), rn, inv_n, n_tokens, d);
-  return cudaGetLastError();
 }
 
 }  // namespace smoe

@@ -41,7 +41,9 @@ own, so row i of a batch equals that row run alone, bitwise; dPhi_n, the
 one output that sums over rows, is the sum of the rows' own partials in
 row order, as the CUDA kernels form it. K6 splits each row's tokens into
 chunks of ``HEALTH_TILES`` token blocks and sums the chunks' partials in
-chunk order, as its kernel does.
+chunk order, as its kernel does; K4 and K5 do the same for dPhi_n and
+dYs with chunks of ``BWD_TILES`` token blocks, and a row's dPhi_n is the
+sum of its chunks' partials in chunk order.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ from typing import Optional
 import torch
 
 from .tuning import (
+    BWD_TILES,
     HEALTH_TILES,
     SOFT_MOE_TILE,
     KernelConfig,
@@ -60,6 +63,7 @@ from .tuning import (
 
 _NEG = -1e30
 _EPS = 1e-6  # must match ref.l2_normalize
+_BWD_SLOT_TILE = 128  # slots one CUDA block of K4 / K5 holds at a time
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -217,8 +221,8 @@ def _l2n_bwd(xf, rn, dxn):
 
 
 def _row_sum(parts):
-    """Per-row partials summed in row order from 0, as the kernels'
-    second pass sums them."""
+    """Partials summed in order from 0, as the kernels' second pass sums
+    them: a row's chunks in chunk order, then the rows in row order."""
     acc = torch.zeros_like(parts[0])
     for p in parts:
         acc = acc + p
@@ -226,7 +230,8 @@ def _row_sum(parts):
 
 
 def _dispatch_bwd_row(xf, phi, gf, dmx, dden, sig, bt, bs):
-    """K4's recurrences for one row: (dx (m, d), dPhi_n partial (d, S))."""
+    """K4's recurrences for one row: (dx (m, d), the row's dPhi_n total
+    (d, S), its chunks' partials summed in chunk order)."""
     m, s = xf.shape[0], phi.shape[1]
     rn = _inv_norm(xf)
 
@@ -247,15 +252,20 @@ def _dispatch_bwd_row(xf, phi, gf, dmx, dden, sig, bt, bs):
             acc_raw = acc_raw + d_w @ g
             acc_n = acc_n + d_lg @ ph.T
         dx.append(acc_raw + _l2n_bwd(xf[t0:t0 + bt], rn[t0:t0 + bt], acc_n))
-    dphi = []
-    for s0 in range(0, s, bs):  # slot-major, token blocks inner
-        acc_p = torch.zeros(xf.shape[1], min(bs, s - s0), device=xf.device)
-        for t0 in range(0, m, bt):
-            d_lg = tile(t0, s0)[1]
-            xn = xf[t0:t0 + bt] * rn[t0:t0 + bt, None]
-            acc_p = acc_p + xn.T @ d_lg
-        dphi.append(acc_p)
-    return torch.cat(dx), torch.cat(dphi, dim=1)
+    parts = []  # one dPhi_n partial per chunk of BWD_TILES token blocks
+    for c0 in range(0, m, bt * BWD_TILES):
+        dphi = []
+        for s0 in range(0, s, bs):  # slot-major, token blocks inner
+            acc_p = torch.zeros(xf.shape[1], min(bs, s - s0),
+                                device=xf.device)
+            for t0 in range(c0, min(c0 + bt * BWD_TILES, m), bt):
+                d_lg = tile(t0, s0)[1]
+                xn = xf[t0:t0 + bt] * rn[t0:t0 + bt, None]
+                acc_p = acc_p + xn.T @ d_lg
+            dphi.append(acc_p)
+        parts.append(torch.cat(dphi, dim=1))
+    # the second pass: the row's chunks summed in chunk order
+    return torch.cat(dx), _row_sum(parts)
 
 
 def _check_shapes(*named):
@@ -277,7 +287,8 @@ def dispatch_bwd_ref(x, phi_n, g_slots, d_stats, slots,
     cfg = _resolve(cfg, m, d, s)
     phi = phi_n.float()
     dmx, dden = (t.float() for t in d_stats)
-    # sigma_s = g_s . slots_s: the softmax-VJP row term, outside the kernel
+    # sigma_s = g_s . slots_s: the softmax-VJP row term (the CUDA
+    # kernel's pre-pass; outside the TPU kernel, in its wrapper)
     sigma = (g_slots.float() * slots.float()).sum(-1)
     if not b:
         return torch.zeros_like(x), torch.zeros_like(phi_n)
@@ -290,8 +301,9 @@ def dispatch_bwd_ref(x, phi_n, g_slots, d_stats, slots,
 
 
 def _combine_bwd_row(xf, phi, ysf, gf, cmx, cden, rho, bt, bs):
-    """K5's recurrences for one row: (dx (m, d), dPhi_n partial (d, S),
-    dys (S, d))."""
+    """K5's recurrences for one row: (dx (m, d), the row's dPhi_n total
+    (d, S), dys (S, d)), dPhi_n and dys each its chunks' partials summed
+    in chunk order."""
     m, s = xf.shape[0], phi.shape[1]
     rn = _inv_norm(xf)
 
@@ -310,19 +322,24 @@ def _combine_bwd_row(xf, phi, ysf, gf, cmx, cden, rho, bt, bs):
             _, d_lg, _, ph = tile(t0, s0)
             acc_n = acc_n + d_lg @ ph.T
         dx.append(_l2n_bwd(xf[t0:t0 + bt], rn[t0:t0 + bt], acc_n))
-    dys, dphi = [], []
-    for s0 in range(0, s, bs):  # slot-major, token blocks inner
-        ns = min(bs, s - s0)
-        acc_y = torch.zeros(ns, xf.shape[1], device=xf.device)
-        acc_p = torch.zeros(xf.shape[1], ns, device=xf.device)
-        for t0 in range(0, m, bt):
-            c_w, d_lg, g, _ = tile(t0, s0)
-            acc_y = acc_y + c_w.T @ g
-            xn = xf[t0:t0 + bt] * rn[t0:t0 + bt, None]
-            acc_p = acc_p + xn.T @ d_lg
-        dys.append(acc_y)
-        dphi.append(acc_p)
-    return torch.cat(dx), torch.cat(dphi, dim=1), torch.cat(dys)
+    p_dys, p_dphi = [], []  # partials per chunk of BWD_TILES token blocks
+    for c0 in range(0, m, bt * BWD_TILES):
+        dys, dphi = [], []
+        for s0 in range(0, s, bs):  # slot-major, token blocks inner
+            ns = min(bs, s - s0)
+            acc_y = torch.zeros(ns, xf.shape[1], device=xf.device)
+            acc_p = torch.zeros(xf.shape[1], ns, device=xf.device)
+            for t0 in range(c0, min(c0 + bt * BWD_TILES, m), bt):
+                c_w, d_lg, g, _ = tile(t0, s0)
+                acc_y = acc_y + c_w.T @ g
+                xn = xf[t0:t0 + bt] * rn[t0:t0 + bt, None]
+                acc_p = acc_p + xn.T @ d_lg
+            dys.append(acc_y)
+            dphi.append(acc_p)
+        p_dys.append(torch.cat(dys))
+        p_dphi.append(torch.cat(dphi, dim=1))
+    # the second pass: the row's chunks summed in chunk order
+    return torch.cat(dx), _row_sum(p_dphi), _row_sum(p_dys)
 
 
 def combine_bwd_ref(x, phi_n, ys, g, c_stats, y,
@@ -338,7 +355,8 @@ def combine_bwd_ref(x, phi_n, ys, g, c_stats, y,
     cfg = _resolve(cfg, m, d, s)
     phi = phi_n.float()
     cmx, cden = (t.float() for t in c_stats)
-    # rho_t = g_t . y_t: the softmax-VJP row term, outside the kernel
+    # rho_t = g_t . y_t: the softmax-VJP row term (the CUDA kernel's
+    # pre-pass; outside the TPU kernel, in its wrapper)
     rho = (g.float() * y.float()).sum(-1)
     rows = [_combine_bwd_row(x[i].float(), phi, ys[i].float(), g[i].float(),
                              cmx[i], cden[i], rho[i], cfg.block_tokens,
@@ -605,6 +623,43 @@ def combine_online(x, phi_n, ys, cfg: Optional[KernelConfig] = None):
 combine_online.launches = 0
 
 
+def _bwd_scratch(b, m, d, s, cfg, dev, n_dots, n_parts):
+    """The backward kernels' scratch: rn and inv_n (b, m), the pre-pass's
+    ``n_dots`` softmax-VJP row terms (sigma or rho), ``n_parts``
+    chunk-partial buffers (b, n_chunks, S, d) f32, and dX's f32
+    accumulator (b, m, d) when S spans more than one 128-slot tile of the
+    kernel (else None)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    nch = -(-m // (cfg.block_tokens * BWD_TILES))
+    parts = [torch.empty((b, nch, s, d), **f32) for _ in range(n_parts)]
+    dx_acc = torch.empty((b, m, d), **f32) if s > _BWD_SLOT_TILE else None
+    return (torch.empty((b, m), **f32), torch.empty((b, m), **f32),
+            torch.empty(n_dots, **f32), parts, dx_acc)
+
+
+def _dispatch_bwd_cuda(x, phi_n, g_slots, d_stats, slots, cfg):
+    b, m, d = x.shape
+    s = phi_n.shape[1]
+    dx = torch.empty_like(x)
+    dphi = torch.empty((d, s), dtype=torch.float32, device=x.device)
+    rn, inv_n, sigma, (part,), dx_acc = _bwd_scratch(b, m, d, s, cfg,
+                                                     x.device, (b, s), 1)
+    fn = _launcher("soft_moe_dispatch_bwd", "soft_moe_dispatch_bwd_launch",
+                   13, 6)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), phi_n.data_ptr(), g_slots.data_ptr(),
+                 slots.data_ptr(), d_stats[0].data_ptr(),
+                 d_stats[1].data_ptr(), dx.data_ptr(), dphi.data_ptr(),
+                 rn.data_ptr(), inv_n.data_ptr(), sigma.data_ptr(),
+                 0 if dx_acc is None else dx_acc.data_ptr(), part.data_ptr(),
+                 _DTYPE_CODE[x.dtype], b, m, d, s,
+                 cfg.block_tokens * BWD_TILES, _stream(x.device))
+    if err != 0:
+        raise RuntimeError(
+            f"soft_moe_dispatch_bwd launch failed: cudaError {err}")
+    return dx, dphi
+
+
 def dispatch_bwd(x, phi_n, g_slots, d_stats, slots,
                  cfg: Optional[KernelConfig] = None):
     """K4: ``(dx (b, m, d) in x's dtype, dphi_n (d, S) f32)``, the
@@ -621,33 +676,37 @@ def dispatch_bwd(x, phi_n, g_slots, d_stats, slots,
     if x.device.type == "cpu":
         return dispatch_bwd_ref(x, phi_n, g_slots, d_stats, slots, cfg)
     _refuse_grad(x, phi_n, g_slots, slots, *d_stats)
-    _check_cuda(cfg, x, phi_n, {"g_slots": g_slots}, tuple(d_stats))
-    dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    # sigma_s = g_s . slots_s: the softmax-VJP row term, O(S d), outside
-    # the kernel as in the JAX wrapper
-    sigma = (g_slots.float() * slots.float()).sum(-1)
-    dx = torch.empty_like(x)
-    dphi = torch.empty((d, s), **f32)
-    rn, inv_n = torch.empty((b, m), **f32), torch.empty((b, m), **f32)
-    part = torch.empty((b, s, d), **f32)
-    fn = _launcher("soft_moe_dispatch_bwd", "soft_moe_dispatch_bwd_launch",
-                   11, 8)
-    with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), phi_n.data_ptr(), g_slots.data_ptr(),
-                 d_stats[0].data_ptr(), d_stats[1].data_ptr(),
-                 sigma.data_ptr(), dx.data_ptr(), dphi.data_ptr(),
-                 rn.data_ptr(), inv_n.data_ptr(), part.data_ptr(),
-                 _DTYPE_CODE[x.dtype], b, m, d, s, cfg.block_tokens,
-                 cfg.block_slots, d_chunk(d), _stream(dev))
-    if err != 0:
-        raise RuntimeError(
-            f"soft_moe_dispatch_bwd launch failed: cudaError {err}")
+    _check_cuda(cfg, x, phi_n, {"g_slots": g_slots, "slots": slots},
+                tuple(d_stats))
+    out = _dispatch_bwd_cuda(x, phi_n, g_slots, d_stats, slots, cfg)
     dispatch_bwd.launches += 1
-    return dx, dphi
+    return out
 
 
 dispatch_bwd.launches = 0
+
+
+def _combine_bwd_cuda(x, phi_n, ys, g, c_stats, y, cfg):
+    b, m, d = x.shape
+    s = phi_n.shape[1]
+    dx, dys = torch.empty_like(x), torch.empty_like(ys)
+    dphi = torch.empty((d, s), dtype=torch.float32, device=x.device)
+    rn, inv_n, rho, (p_phi, p_ys), dx_acc = _bwd_scratch(
+        b, m, d, s, cfg, x.device, (b, m), 2)
+    fn = _launcher("soft_moe_combine_bwd", "soft_moe_combine_bwd_launch",
+                   16, 6)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), phi_n.data_ptr(), ys.data_ptr(), g.data_ptr(),
+                 y.data_ptr(), c_stats[0].data_ptr(), c_stats[1].data_ptr(),
+                 dx.data_ptr(), dphi.data_ptr(), dys.data_ptr(),
+                 rn.data_ptr(), inv_n.data_ptr(), rho.data_ptr(),
+                 0 if dx_acc is None else dx_acc.data_ptr(),
+                 p_phi.data_ptr(), p_ys.data_ptr(), _DTYPE_CODE[x.dtype], b,
+                 m, d, s, cfg.block_tokens * BWD_TILES, _stream(x.device))
+    if err != 0:
+        raise RuntimeError(
+            f"soft_moe_combine_bwd launch failed: cudaError {err}")
+    return dx, dphi, dys
 
 
 def combine_bwd(x, phi_n, ys, g, c_stats, y,
@@ -666,30 +725,10 @@ def combine_bwd(x, phi_n, ys, g, c_stats, y,
     if x.device.type == "cpu":
         return combine_bwd_ref(x, phi_n, ys, g, c_stats, y, cfg)
     _refuse_grad(x, phi_n, ys, g, y, *c_stats)
-    _check_cuda(cfg, x, phi_n, {"ys": ys, "g": g}, tuple(c_stats))
-    dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    # rho_t = g_t . y_t: the softmax-VJP row term, O(m d), outside the
-    # kernel as in the JAX wrapper
-    rho = (g.float() * y.float()).sum(-1)
-    dx, dys = torch.empty_like(x), torch.empty_like(ys)
-    dphi = torch.empty((d, s), **f32)
-    rn, inv_n = torch.empty((b, m), **f32), torch.empty((b, m), **f32)
-    part = torch.empty((b, s, d), **f32)
-    fn = _launcher("soft_moe_combine_bwd", "soft_moe_combine_bwd_launch",
-                   13, 8)
-    with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), phi_n.data_ptr(), ys.data_ptr(), g.data_ptr(),
-                 c_stats[0].data_ptr(), c_stats[1].data_ptr(),
-                 rho.data_ptr(), dx.data_ptr(), dphi.data_ptr(),
-                 dys.data_ptr(), rn.data_ptr(), inv_n.data_ptr(),
-                 part.data_ptr(), _DTYPE_CODE[x.dtype], b, m, d, s,
-                 cfg.block_tokens, cfg.block_slots, d_chunk(d), _stream(dev))
-    if err != 0:
-        raise RuntimeError(
-            f"soft_moe_combine_bwd launch failed: cudaError {err}")
+    _check_cuda(cfg, x, phi_n, {"ys": ys, "g": g, "y": y}, tuple(c_stats))
+    out = _combine_bwd_cuda(x, phi_n, ys, g, c_stats, y, cfg)
     combine_bwd.launches += 1
-    return dx, dphi, dys
+    return out
 
 
 combine_bwd.launches = 0

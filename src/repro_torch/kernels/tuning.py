@@ -34,6 +34,14 @@ The routing-health kernel (K6) reduces a row's tokens in chunks of
 ``HEALTH_TILES`` token blocks, one CUDA block per (chunk, slot block,
 row), and sums the chunks' partials in chunk order; the chunk does not
 depend on the batch, so a row's statistics do not either.
+
+The backward kernels (K4, K5) split a row's tokens the same way, in
+chunks of ``BWD_TILES`` token blocks (64 tokens at the default 32-token
+block), one CUDA block per (chunk, row): it builds its chunk's weights
+for every slot once and writes dX and the chunk's dPhi_n (and dYs)
+partials, which a second pass sums in chunk order, then over rows in
+row order. They take no d-chunk: ``D_CHUNKS`` and ``d_chunk()`` are the
+forward kernels'.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import torch
 SOFT_MOE_TILE = 32  # largest token / slot block of the CUDA kernels
 D_CHUNKS = (128, 256, 384, 768)  # d-chunk widths the kernels are built for
 HEALTH_TILES = 2  # token blocks one block of the routing-health kernel reduces
+BWD_TILES = 2  # token blocks of one chunk of the backward kernels K4, K5
 
 
 @dataclass(frozen=True)

@@ -34,6 +34,7 @@ import torch
 from repro_torch.configs import MoEConfig
 from repro_torch.core import moe_apply, moe_init, soft_moe_apply
 from repro_torch.kernels import ops, ref
+from repro_torch.layers.common import activation
 from repro_torch.kernels.soft_moe_kernels import (
     combine_apply,
     combine_bwd,
@@ -91,9 +92,12 @@ def _inputs(seed, b, m, d, s, scale=1.1):
 
 # (b, m, d, S, block_tokens, block_slots): the JAX gradient tests' shapes
 # at their 64-wide blocks (aligned; ragged tokens; ragged slots over
-# several slot blocks), and ragged last blocks on both axes at 16 x 8
+# several slot blocks), ragged last blocks on both axes at 16 x 8, and
+# m over five chunks of BWD_TILES 8-token blocks with a ragged last one
+# (70 = 4 x 16 + 6)
 GRAD_SHAPES = [(1, 64, 32, 16, 64, 64), (2, 100, 48, 24, 64, 64),
-               (3, 72, 32, 150, 64, 64), (2, 45, 24, 20, 16, 8)]
+               (3, 72, 32, 150, 64, 64), (2, 45, 24, 20, 16, 8),
+               (2, 70, 24, 20, 8, 8)]
 
 
 @pytest.mark.parametrize("b,m,d,s,bt,bs", GRAD_SHAPES)
@@ -238,8 +242,13 @@ def test_soft_moe_apply_grads_match_jax(jx, shared, use_kernel):
 
 
 @pytest.mark.parametrize("b,m,d,s,bt,bs", [(3, 20, 32, 20, 8, 8),
-                                           (2, 45, 48, 40, 16, 16)])
+                                           (2, 45, 48, 40, 16, 16),
+                                           (2, 40, 16, 12, 8, 8)])
 def test_plain_backward_row_independent_bitwise(b, m, d, s, bt, bs):
+    """dx and dYs of a batched call equal batch-1 calls bitwise, and dPhi_n
+    is the row-order sum of the batch-1 dPhi_n's, each a row's chunk
+    partials summed in chunk order (the last shape: three chunks of
+    BWD_TILES 8-token blocks, 40 = 16 + 16 + 8)."""
     x, phi_n, ys, g_slots, g = (_t(a) for a in _inputs(11, b, m, d, s))
     cfg = KernelConfig(block_tokens=bt, block_slots=bs)
     slots, d_stats, c_stats = routing_fwd_ref(x, phi_n, cfg)
@@ -259,6 +268,79 @@ def test_plain_backward_row_independent_bitwise(b, m, d, s, bt, bs):
         assert torch.equal(ry5[0], dys5[i])
         acc4, acc5 = acc4 + rp4, acc5 + rp5
     assert torch.equal(acc4, dphi4) and torch.equal(acc5, dphi5)
+
+
+def _moe_layer_f64(params, x, n, p):
+    """The Soft-MoE layer (classic experts, the repo's tanh gelu) in f64
+    throughout: the reference of the bf16 gradient check below."""
+    def l2n(t, dim):
+        return t / (torch.sqrt((t * t).sum(dim, keepdim=True)) + 1e-6)
+
+    b, m, d = x.shape
+    logits = l2n(x, -1) @ (params["scale"] * l2n(params["phi"].reshape(d, -1),
+                                                 0))
+    d_w, c_w = torch.softmax(logits, 1), torch.softmax(logits, -1)
+    xs = (d_w.transpose(1, 2) @ x).reshape(b, n, p, d).permute(1, 0, 2, 3)
+    e = params["experts"]
+    h = activation("gelu")(xs.reshape(n, b * p, d) @ e["w_up"])
+    ys = (h @ e["w_down"]).reshape(n, b, p, d).permute(1, 0, 2, 3)
+    return c_w @ ys.reshape(b, n * p, d)
+
+
+def test_bf16_scale_gradient_kernel_and_einsum_paths_against_f64():
+    """The MoE ``scale`` gradient in bf16 compute (bf16 layer input, f32
+    params, as the ViT runs it) on the kernel path (K1/K2 forward, K4/K5
+    backward: their plain versions here) and on the einsum path, each
+    against the f64 gradient of the same layer on the same inputs, over 32
+    seeds at a reduced layer (b 4, m 49, d 64, 32 one-slot experts).
+
+    The gradient is one number summed over d S terms of both signs, so a
+    bf16 rounding anywhere moves it by much more than its own share. Both
+    paths round x, the slots and the expert outputs to bf16 at the same
+    points; they differ in the routing arithmetic (the kernels normalize x
+    and form the logits in f32, the einsum path normalizes in bf16).
+    Measured (pytest -s prints it): median relative errors 5.7e-3 (kernel)
+    and 5.3e-3 (einsum), the kernel path nearer in 21 of 32 seeds. So
+    neither path is nearer: the kernel-vs-einsum spread of the ViT check
+    is bf16 rounding both paths share. Bounds: each median within 1e-2
+    (about twice the measured ones), and each path nearer in at least 8
+    of 32 seeds."""
+    n, d = 32, 64
+    cfg = MoEConfig(variant="soft", num_experts=n, slots_per_expert=1,
+                    expert_d_ff=32)
+    errs = {"kernel": [], "einsum": []}
+    for seed in range(32):
+        params = moe_init(torch.Generator().manual_seed(seed), d, cfg,
+                          "classic")
+        rng = np.random.RandomState(seed)
+        x = torch.from_numpy(rng.randn(4, 49, d).astype(np.float32)).to(
+            torch.bfloat16)
+        w = torch.from_numpy(rng.randn(4, 49, d))
+        p64 = {k: v.double() for k, v in _flat(params).items()}
+        scale = p64["/scale"].requires_grad_()
+        tree = {"phi": p64["/phi"], "scale": scale,
+                "experts": {k.split("/")[-1]: v for k, v in p64.items()
+                            if k.startswith("/experts/")}}
+        y = _moe_layer_f64(tree, x.double(), n, 1)
+        ref = torch.autograd.grad((y * w).sum(), scale)[0].item()
+        for path in errs:
+            leaves = {k: v.clone() for k, v in _flat(params).items()}
+            scale = leaves["/scale"].requires_grad_()
+            tree = {"phi": leaves["/phi"], "scale": scale,
+                    "experts": {k.split("/")[-1]: v for k, v in leaves.items()
+                                if k.startswith("/experts/")}}
+            y, _ = soft_moe_apply(tree, cfg, x, "gelu",
+                                  use_kernel=path == "kernel")
+            got = torch.autograd.grad((y.double() * w).sum(), scale)[0].item()
+            errs[path].append(abs(got - ref) / abs(ref))
+    med = {k: float(np.median(v)) for k, v in errs.items()}
+    kernel_nearer = sum(a < b for a, b in zip(errs["kernel"],
+                                              errs["einsum"]))
+    print(f"bf16 scale gradient vs f64, 32 seeds: median rel err kernel "
+          f"{med['kernel']:.3e}, einsum {med['einsum']:.3e}; kernel path "
+          f"nearer in {kernel_nearer} of 32")
+    assert med["kernel"] <= 1e-2 and med["einsum"] <= 1e-2
+    assert 8 <= kernel_nearer <= 24
 
 
 def test_backward_wrappers_run_plain_versions_on_cpu_and_count_no_launch():
@@ -324,10 +406,13 @@ def cuda():
     return torch.device("cuda")
 
 
-# (b, m, d, S, cfg): ragged tokens and slots in a chunk wider than d (264
-# of 384 columns), and L/16's d = 1024 over two 768-column chunks
+# (b, m, d, S, cfg): ragged tokens, slots and columns (a last d-tile of 8
+# of 32 columns); L/16's d = 1024 at 16 x 8 blocks (32-token chunks); m
+# over several 64-token chunks with a ragged last one (300 = 4 x 64 + 44)
+# and S over two slot tiles of the kernels (150 = 128 + 22)
 CUDA_CASES = [(3, 70, 264, 40, None),
-              (2, 45, 1024, 40, KernelConfig(block_tokens=16, block_slots=8))]
+              (2, 45, 1024, 40, KernelConfig(block_tokens=16, block_slots=8)),
+              (2, 300, 264, 150, None)]
 
 
 @pytest.mark.cuda
