@@ -46,24 +46,24 @@
 // call bitwise, a batch-1 dPhi_n is its row total, and every output is
 // bitwise the same from run to run.
 //
-// Products run on the tensor cores with mma.sync at f32 accuracy (the
-// TPU kernels compute in f32): a bf16 operand is exact in TF32; an f32
-// operand is split into a TF32 high part and a TF32 low part, and a
-// product takes as many passes as that needs (x . g and g . Ys in bf16:
-// one bf16 m16n8k16 pass; one f32 operand: two m16n8k8 TF32 passes; two:
-// three, "3xTF32"). Each product sums 32-deep slices on the tensor cores
-// into zeroed fragments, the high x high pass and the small passes apart
-// (two chains in flight), and adds the slices in f32 on the CUDA cores,
-// so the tensor cores' own accumulation never runs over the whole of d.
-// Operand tiles are staged with cp.async, the next tile's while the
-// current one computes. The weights live in shared memory, so the bf16
-// 32-slot body (the granite layer's) fits two CTAs an SM; the 128-slot
-// one (B/16's) takes 133 KB of shared memory and one.
+// Products run on the tensor cores with mma.sync at f32 accuracy (the TPU
+// kernels compute in f32; the pieces are in soft_moe_mma.cuh): a bf16
+// operand is exact in TF32; an f32 operand is split into a TF32 high part
+// and a TF32 low part, and a product takes as many passes as that needs
+// (x . g and g . Ys in bf16: one bf16 m16n8k16 pass; one f32 operand: two
+// m16n8k8 TF32 passes; two: three, "3xTF32"). Each product sums 32-deep
+// slices on the tensor cores into zeroed fragments, the high x high pass
+// and the small passes apart (two chains in flight), and adds the slices
+// in f32 on the CUDA cores, so the tensor cores' own accumulation never
+// runs over the whole of d. Operand tiles are staged with cp.async, the
+// next tile's while the current one computes. The weights live in shared
+// memory, so the bf16 32-slot body (the granite layer's) fits two CTAs an
+// SM; the 128-slot one (B/16's) takes 133 KB of shared memory and one.
 #pragma once
 
 #include <type_traits>
 
-#include "soft_moe_common.cuh"
+#include "soft_moe_mma.cuh"
 
 namespace smoe {
 
@@ -133,194 +133,6 @@ cudaError_t launch_prepass(const void* x, float* rn, float* inv_n,
       static_cast<const T*>(x), rn, inv_n, n_tok, static_cast<const T*>(u),
       static_cast<const T*>(v), dots, n_dot, d);
   return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// tensor-core fragments (mma.sync, row.col; g = lane / 4, t = lane % 4):
-//   A 16 x 8 (TF32): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
-//                    a3 (g + 8, t + 4)
-//   B 8 x 8 (TF32):  b0 (k = t, n = g), b1 (k = t + 4, n = g)
-//   C 16 x 8 (f32):  c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
-//                    c3 (g + 8, 2t + 1)
-// bf16 m16n8k16 packs two k-neighbours a register: A (g, 2t..2t+1),
-// (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); B (k = 2t.., n = g),
-// (k = 2t + 8.., n = g).
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// An operand fragment: h the TF32 high part (the value itself when exact),
-// l the low part v - h (used only when the operand is split).
-template <int N>
-struct Frag {
-  uint32_t h[N], l[N];
-};
-
-template <bool SPLIT, int N>
-__device__ __forceinline__ void make_frag(Frag<N>& f, const float (&v)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (SPLIT) {
-      f.h[i] = to_tf32(v[i]);
-      f.l[i] = to_tf32(v[i] - __uint_as_float(f.h[i]));
-    } else {
-      f.h[i] = __float_as_uint(v[i]);  // a bf16 value: exact in TF32
-    }
-  }
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A B in the passes the operands need: hi x hi into big, and the small
-// terms lo x hi and hi x lo into small. Two accumulators keep two
-// independent chains of tensor-core instructions in flight.
-template <bool SA, bool SB>
-__device__ __forceinline__ void mma_f32(float (&big)[4], float (&small)[4],
-                                        const Frag<4>& a, const Frag<2>& b) {
-  if (SA) mma_tf32(small, a.l, b.h);
-  if (SB) mma_tf32(small, a.h, b.l);
-  mma_tf32(big, a.h, b.h);
-}
-
-// acc += small + big, element by element, in that order.
-template <int N>
-__device__ __forceinline__ void add_to(float (&acc)[N][4],
-                                       const float (&big)[N][4],
-                                       const float (&small)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] += small[i][e] + big[i][e];
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-}
-
-// A 16 x 8 fragment of a row-major array p (row stride ld) at its origin.
-template <typename T>
-__device__ __forceinline__ void ld_a(float (&v)[4], const T* p, int ld, int g,
-                                     int t) {
-  v[0] = to_f32(p[g * ld + t]);
-  v[1] = to_f32(p[(g + 8) * ld + t]);
-  v[2] = to_f32(p[g * ld + t + 4]);
-  v[3] = to_f32(p[(g + 8) * ld + t + 4]);
-}
-
-// The A fragment of the transpose of a row-major array: A[i][k] = p[k][i].
-__device__ __forceinline__ void ld_a_t(float (&v)[4], const float* p, int ld,
-                                       int g, int t) {
-  v[0] = p[t * ld + g];
-  v[1] = p[t * ld + g + 8];
-  v[2] = p[(t + 4) * ld + g];
-  v[3] = p[(t + 4) * ld + g + 8];
-}
-
-// A B fragment from a [k][n] array (row stride ld) ...
-template <typename T>
-__device__ __forceinline__ void ld_b_kn(float (&v)[2], const T* p, int ld,
-                                        int g, int t) {
-  v[0] = to_f32(p[t * ld + g]);
-  v[1] = to_f32(p[(t + 4) * ld + g]);
-}
-
-// ... and from an [n][k] array.
-template <typename T>
-__device__ __forceinline__ void ld_b_nk(float (&v)[2], const T* p, int ld,
-                                        int g, int t) {
-  v[0] = to_f32(p[g * ld + t]);
-  v[1] = to_f32(p[g * ld + t + 4]);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// ---------------------------------------------------------------------------
-// asynchronous staging
-// ---------------------------------------------------------------------------
-
-// 16 bytes (or zeros when !ok: nothing is read) from global to shared.
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [0, ROWS) x columns [c0, c0 + COLS) of src (row stride d) into dst
-// (row stride ld); rows >= n and columns >= d are zeros. d % 8 == 0 and
-// 16-byte aligned rows: a 16-byte piece lies wholly inside or outside d.
-template <typename T, int ROWS, int COLS>
-__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src, int n,
-                                           int d, int c0, int tid) {
-  constexpr int V = 16 / sizeof(T), P = COLS / V;
-  for (int i = tid; i < ROWS * P; i += kThreads) {
-    const int r = i / P, c = (i - r * P) * V;
-    const bool ok = r < n && c0 + c < d;
-    cp16(dst + r * ld + c, ok ? src + (size_t)r * d + c0 + c : src, ok);
-  }
-}
-
-// Phi_n[k0 + k][s0 + s] for k < K, s < NS into dst[k * ld + s]; rows >= d
-// and slots >= S are zeros. 16-byte copies when the rows are 16-byte
-// aligned (vec: S % 4 == 0, s0 % 4 == 0), else 4-byte ones.
-template <int K, int NS>
-__device__ __forceinline__ void stage_phi(float* dst, int ld, const float* phi,
-                                          int d, int S, int k0, int s0,
-                                          bool vec, int tid) {
-  if (vec) {
-    for (int i = tid; i < K * NS / 4; i += kThreads) {
-      const int k = i / (NS / 4), s = 4 * (i - k * (NS / 4));
-      const bool ok = k0 + k < d && s0 + s < S;
-      cp16(dst + k * ld + s, ok ? phi + (size_t)(k0 + k) * S + s0 + s : phi,
-           ok);
-    }
-    return;
-  }
-  for (int i = tid; i < K * NS; i += kThreads) {
-    const int k = i / NS, s = i - k * NS;
-    const bool ok = k0 + k < d && s0 + s < S;
-    cp4(dst + k * ld + s, ok ? phi + (size_t)(k0 + k) * S + s0 + s : phi, ok);
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 // Shared pieces of the Soft-MoE kernels for Hopper (sm_90a): K1 routing
 // (soft_moe_routing.cu), K2/K3 combine (soft_moe_combine.cu), K6 routing
 // health (soft_moe_routing_health.cu) and, for their constants and
-// conversions, the backward kernels K4/K5 (soft_moe_bwd.cuh).
+// conversions, the tensor-core pieces (soft_moe_mma.cuh) and the backward
+// kernels K4/K5 (soft_moe_bwd.cuh).
 //
 // The forward kernels contract a (tokens x d) tile against Phi_n (d x
 // slots) into a 32 x 32 tile of logits l2norm(x) . Phi_n, in f32 on the
