@@ -20,16 +20,19 @@ prints no result line):
    and K3 (online combine) against their plain PyTorch versions on the
    card at the Soft-MoE B/16 layer's shapes and at ragged ones (a token
    count that is not a multiple of the token block, the S/14-256E shape
-   over several slot blocks, a single row, f32 inputs, a d narrower
-   than its chunk, L/16's d = 1024 over two d-chunks, the granite LM
-   layer's m = 2048, d = 1024, S = 32), checks batched ==
-   batch-1 bitwise, that K2 on K1's stats agrees with K3 and K3's stats
-   with K1's, and that malformed operands raise; then times each kernel,
-   its plain version, one ``scaled_dot_product_attention`` call that
-   computes its main output (the library yardstick) and the port's
-   unfused einsum path of the same function, and reads each one's peak
-   device memory above its inputs; K1 and K2 are also timed at the
-   granite layer's shapes beside the same SDPA call and einsum path.
+   over several slot blocks and two of K2's 128-slot tiles, a single
+   row, f32 inputs, a d narrower than K3's d-chunk, L/16's d = 1024 over
+   two d-chunks, the granite LM layer's m = 2048, d = 1024, S = 32 over
+   32 of K1's token chunks), checks batched == batch-1 bitwise, that K2
+   on K1's stats agrees with K3 and K3's stats with K1's, and that
+   malformed operands raise; then times each kernel, its plain version,
+   one ``scaled_dot_product_attention`` call that computes its main
+   output (the library yardstick) and the port's unfused einsum path of
+   the same function, and reads each one's peak device memory above its
+   inputs; K1 and K2 are also timed at the granite layer's shapes beside
+   the same SDPA call and einsum path, and at both layers beside the
+   bound of the work their tensor-core design runs, with one call's
+   device time by launch (pre-pass, main kernel, merge).
 5. soft-moe backward kernels: holds K4 (dispatch backward) and K5
    (combine backward) against their plain PyTorch versions on the card at
    the B/16 layer in bf16 and f32, a ragged case (m = 45, d = 264, S = 40,
@@ -216,11 +219,11 @@ def phase_build():
 
 
 def kernel_label(line):
-    """'name<bf16|f32, d-chunk>' from ptxas's 'Compiling entry function'
+    """'name<bf16|f32, tile>' from ptxas's 'Compiling entry function'
     line (a mangled name: its nested identifiers, each prefixed by its
     length, then its template arguments: the element type and, for the
-    Soft-MoE kernels, the d-chunk's 128-column count (K1-K3) or the slot
-    tile's 32-slot count (K4, K5))."""
+    Soft-MoE kernels, K1's chunk rows in 32-token units, K3's d-chunk in
+    128-column units or the slot tile's 32-slot count (K2, K4, K5))."""
     import re
 
     mangled = line.split("'")[1] if "'" in line else line
@@ -238,9 +241,12 @@ def kernel_label(line):
     elif rest.startswith("If"):
         args.append("f32")
     nv = re.search(r"Li(\d+)E", rest)
-    if nv and label.endswith("bwd_kernel"):  # K4/K5: the slot tile
+    if nv and (label.endswith("bwd_kernel")
+               or label == "combine_apply_kernel"):  # K2, K4, K5
         args.append(f"slot tile {32 * int(nv.group(1))}")
-    elif nv and not label.startswith("paged"):  # K7's is the head dim
+    elif nv and label == "routing_kernel":  # K1: the chunk's token rows
+        args.append(f"chunk <= {32 * int(nv.group(1))} tokens")
+    elif nv and label == "combine_kernel":  # K3
         args.append(f"d-chunk {128 * int(nv.group(1))}")
     return label + (f"<{', '.join(args)}>" if args else "")
 
@@ -490,6 +496,45 @@ def soft_moe_bounds(x, s, kind):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
+def soft_moe_fwd_design_bound(x, s, kind):
+    """Least time on the card for the work the tensor-core design of K1
+    and K2 runs (csrc/soft_moe_routing.cu, csrc/soft_moe_combine.cu): its
+    two products of 2 m S d flops a row (the logits and the mix), as passes
+    on the tensor cores at the dense TF32 peak (bf16 x: two passes each,
+    the f32 operand split; f32 x: three), against the bytes of
+    soft_moe_bounds plus, for K1 at the default tiling, the partials
+    written once and read once: the chunks' slots (b, n_chunks, S, d) f32
+    and their (max, denom) where a row has several token chunks, and the
+    slot blocks' combine (max, denom) (b, n_slot_blocks, m) where it has
+    several slot blocks."""
+    from repro_torch.kernels.tuning import default_config, routing_chunk
+
+    b, m, d = x.shape
+    passes = 2 if x.element_size() == 2 else 3
+    t_ops = 2 * passes * 2.0 * b * m * s * d / TF32_FLOPS
+    nbytes = soft_moe_bounds(x, s, kind)[2]
+    if kind == "routing":
+        cfg = default_config(m, d, s)
+        nch = -(-m // routing_chunk(m, s, cfg.block_tokens))
+        nsb = -(-s // cfg.block_slots)
+        if nch > 1:
+            nbytes += 2 * b * nch * s * (d + 2) * 4
+        if nsb > 1:
+            nbytes += 2 * b * nsb * m * 2 * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, t_ops)
+
+
+def launch_times(torch, kern, shape, name, tag="softmoe"):
+    """Log one call's device time by launch (5 calls profiled): the norm
+    pre-pass, the main kernel, the merge or partial sums."""
+    _, prof = profile_ticks(torch, types.SimpleNamespace(step=kern), 5)
+    log(f"[{tag}] {name} device time of one call by kernel ({shape}): "
+        + "; ".join(f"{kname[:60]} {us / 5:.1f} us x{n // 5}"
+                    for kname, us, n in prof))
+
+
 def softmoe_yardsticks(torch, x, phi_n, ys, flush, shape):
     """The yardsticks of K1-K3 on these operands: ({kind: sdpa_options(...)},
     {kind: the einsum path's call}) for kind "routing" and "combine"; logs
@@ -557,7 +602,12 @@ def phase_soft_moe_kernels(torch):
         routing_fwd,
         routing_fwd_ref,
     )
-    from repro_torch.kernels.tuning import KernelConfig, d_chunk
+    from repro_torch.kernels.tuning import (
+        KernelConfig,
+        d_chunk,
+        default_config,
+        routing_chunk,
+    )
 
     # Elementwise |out - ref| <= atol + rtol |ref|. Outputs: f32 within
     # 1e-5 relative; bf16 within one bf16 step, 2^-7 |ref| (both sides
@@ -575,10 +625,11 @@ def phase_soft_moe_kernels(torch):
         ("single row bf16", 1, 196, 768, 128, torch.bfloat16, None),
         # 264 of a 384-column chunk's columns lie inside d
         ("ragged m45 d264 S40 f32", 3, 45, 264, 40, torch.float32, None),
-        # L/16's width: two 768-column chunks, each recomputing the logits
+        # L/16's width: two of K3's 768-column chunks, each recomputing
+        # the logits
         ("L/16 layer d1024 bf16", 8, 196, 1024, 128, torch.bfloat16, None),
-        # granite-moe-1b-a400m+soft's layer at seq 2048: 64 token blocks,
-        # one slot block, two d-chunks
+        # granite-moe-1b-a400m+soft's layer at seq 2048: 32 of K1's
+        # 64-token chunks, one slot block; two of K3's d-chunks
         ("granite layer bf16", 8, 2048, 1024, 32, torch.bfloat16, None),
     ]
     main, granite = {}, None
@@ -626,8 +677,12 @@ def phase_soft_moe_kernels(torch):
             bitwise &= torch.equal(y3r[0], y3[r])
             bitwise &= all(torch.equal(g[0], w[r])
                            for g, w in zip(st3r, st3))
+        cfg = kcfg or default_config(m, d, s)
+        ct = routing_chunk(m, s, cfg.block_tokens)
         log(f"[softmoe] {label}: b={b} m={m} d={d} S={s} "
-            f"{str(dt).replace('torch.', '')} d_chunk={d_chunk(d)} "
+            f"{str(dt).replace('torch.', '')} K1 chunks={-(-m // ct)} of "
+            f"{ct} tokens, slot blocks={-(-s // cfg.block_slots)}; K3 "
+            f"d_chunk={d_chunk(d)} "
             + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
             + f" (tol outputs {atol:.0e} + {rtol:.4g}|ref|, stats "
             f"{stat_tol[0]:.0e} + {stat_tol[1]:.0e}|ref|: {all(oks)}); "
@@ -727,6 +782,13 @@ def phase_soft_moe_kernels(torch):
         mem = {k: peak_above(f) / 2**20 for k, f in (
             ("kernel", kern), ("sdpa", lib_call), ("einsum", einsum[kind]))}
         bound_ms, bound_by, nbytes, flops = soft_moe_bounds(x, s, kind)
+        design = ""
+        if name != "combine_online":  # K3 keeps PR 12's design
+            design_ms, design_by, d_bytes, d_ops = soft_moe_fwd_design_bound(
+                x, s, kind)
+            design = (f"; design bound={design_ms * 1e3:.2f} us ({design_by}"
+                      f": {d_bytes / 1e6:.1f} MB with the partials, "
+                      f"{d_ops * 1e6:.2f} us of tensor-core passes)")
         log(f"[softmoe] {name} timing (b=64 m=196 d=768 S=128 bf16, L2 "
             f"flushed): kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms:.4f} (scaled_dot_product_attention, "
@@ -734,17 +796,20 @@ def phase_soft_moe_kernels(torch):
             f"einsum_path_ms={einsum_ms:.4f} (the port's unfused path) "
             f"bound={bound_ms * 1e3:.2f} us ({bound_by}: "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> "
-            f"{flops / kernel_ms / 1e9:.2f} TFLOP/s; peak MiB above the "
-            f"inputs: kernel {mem['kernel']:.1f}, sdpa {mem['sdpa']:.1f}, "
-            f"einsum path {mem['einsum']:.1f}")
+            f"{flops / kernel_ms / 1e9:.2f} TFLOP/s{design}; peak MiB above "
+            f"the inputs: kernel {mem['kernel']:.1f}, sdpa {mem['sdpa']:.1f}"
+            f", einsum path {mem['einsum']:.1f}")
+        launch_times(torch, kern, "b=64 m=196 d=768 S=128 bf16", name)
         out[name] = {"max_abs_err": main["err"][name], "ms": kernel_ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
                      "einsum_path_ms": einsum_ms}
+        if design:
+            out[name]["design_bound_ms"] = design_ms
 
     # K1 and K2 at the granite layer's shapes, as the LM training phase
-    # runs them (b=8, m=2048, d=1024, S=32, bf16): 16 CTAs for K1's main
-    # kernel, two d-chunks; beside the same yardsticks as at B/16
+    # runs them (b=8, m=2048, d=1024, S=32, bf16): 32 token chunks a row
+    # for both; beside the same yardsticks as at B/16
     gx, gphi, gys, gstats = granite
     shape = "b=8 m=2048 d=1024 S=32 bf16"
     library, einsum = softmoe_yardsticks(torch, gx, gphi, gys, flush, shape)
@@ -761,6 +826,8 @@ def phase_soft_moe_kernels(torch):
                                  f"the granite layer by {lib_err:.3e}")
         bound_ms, bound_by, nbytes, flops = soft_moe_bounds(
             gx, gphi.shape[1], kind)
+        design_ms, design_by, d_bytes, d_ops = soft_moe_fwd_design_bound(
+            gx, gphi.shape[1], kind)
         ms = time_ms(torch, kern, flush=flush)
         einsum_ms = time_ms(torch, einsum[kind], flush=flush)
         log(f"[softmoe] {name} timing at the granite layer ({shape}, L2 "
@@ -769,10 +836,15 @@ def phase_soft_moe_kernels(torch):
             f"{lib_err:.3e}) einsum_path_ms={einsum_ms:.4f} "
             f"bound={bound_ms * 1e3:.2f} us ({bound_by}: "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> "
-            f"{flops / ms / 1e9:.2f} TFLOP/s")
+            f"{flops / ms / 1e9:.2f} TFLOP/s; design bound="
+            f"{design_ms * 1e3:.2f} us ({design_by}: {d_bytes / 1e6:.1f} MB "
+            f"with the partials, {d_ops * 1e6:.2f} us of tensor-core "
+            f"passes)")
+        launch_times(torch, kern, shape, name)
         out[name]["granite"] = {"ms": ms, "bound_ms": bound_ms,
                                 "library_ms": library_ms,
-                                "einsum_path_ms": einsum_ms}
+                                "einsum_path_ms": einsum_ms,
+                                "design_bound_ms": design_ms}
     return out
 
 
@@ -1090,13 +1162,7 @@ def phase_soft_moe_bwd_kernels(torch):
                 f"least work; design bound={design_ms * 1e3:.2f} us "
                 f"({design_by}: {d_bytes / 1e6:.1f} MB with the chunk "
                 f"partials, {d_ops * 1e6:.2f} us of tensor-core passes)")
-            # device time of one call by launch: the norm pre-pass, the
-            # main kernel, the partial sums and the wrapper's torch ops
-            _, prof = profile_ticks(torch, types.SimpleNamespace(step=kern), 5)
-            log(f"[softmoe-bwd] {name} device time of one call by kernel "
-                f"({shape}): " + "; ".join(
-                    f"{kname[:60]} {us / 5:.1f} us x{n // 5}"
-                    for kname, us, n in prof))
+            launch_times(torch, kern, shape, name, "softmoe-bwd")
             row = {"ms": kernel_ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": library_ms, "einsum_path_ms": einsum_ms,
@@ -1498,12 +1564,14 @@ def kernel_kind(name):
     if any(k in name for k in ("prepass_kernel", "dphi_reduce_kernel",
                                "chunk_sum_kernel")):
         return "K4/K5 pre-pass and partial sums"
-    if "routing_kernel" in name or "merge_kernel" in name:
+    if "routing_kernel" in name or "routing_merge_kernel" in name:
         return "K1 routing"
+    if "combine_apply_kernel" in name:
+        return "K2 combine"
     if "combine_kernel" in name:
-        return "K2/K3 combine"
+        return "K3 online combine"
     if "inv_norm_kernel" in name:
-        return "K1/K2/K6 norm pre-pass"
+        return "K1/K2/K3/K6 norm pre-pass"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "gemv", "nvjet")):
         return "matmul"
     if "copy_kernel" in low:
@@ -2373,6 +2441,76 @@ def phase_lm_train(torch, card):
     del state, trainer, step_on, step_off
     torch.cuda.empty_cache()
     return {"routing_health": launches[5]}
+
+
+# ---------------------------------------------------------------------------
+# comparing builds of the Soft-MoE kernels (not run by main)
+# ---------------------------------------------------------------------------
+
+
+def compare_builds(torch, dirs, which="forward"):
+    """Build the Soft-MoE kernels from each copy of ``csrc/`` in ``dirs``
+    in one process and time them in turns (each build, then in reverse
+    order), L2 flushed, at the B/16 and the granite layer: K1 and K2
+    (``which="forward"``) or K4 and K5 (``"backward"``, also on f32 and
+    several-chunk cases). Logs whether each build's outputs equal the
+    first's bitwise and each kernel's mean time per build. For variants of
+    a kernel on one card: copy ``src/repro_torch/csrc`` into a git-ignored
+    directory, edit it, and run ``python3 -c "import torch, chip_smoke as
+    c; c.phase_device(torch); c.compare_builds(torch, ['build/a',
+    'build/b'])"``."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import soft_moe_kernels as k
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    if which == "forward":
+        sources = ["soft_moe_routing", "soft_moe_combine"]
+        shapes = {"b16": (100, 64, 196, 768, 128, bf16),
+                  "granite": (107, 8, 2048, 1024, 32, bf16)}
+        cases = {}
+        for name, (seed, *shape) in shapes.items():
+            x, phi, ys = soft_moe_case(torch, seed, *shape)
+            stats = k.routing_fwd_ref(x, phi)[2]
+            cases[name] = {
+                "routing_fwd": lambda x=x, phi=phi: k.routing_fwd(x, phi),
+                "combine_apply": lambda x=x, phi=phi, ys=ys, st=stats:
+                    k.combine_apply(x, phi, ys, st)}
+    else:
+        sources = ["soft_moe_dispatch_bwd", "soft_moe_combine_bwd"]
+        shapes = {"b16": (300, 64, 196, 768, 128, bf16),
+                  "b16 f32": (301, 64, 196, 768, 128, f32),
+                  "m300 S150 f32": (305, 2, 300, 264, 150, f32),
+                  "granite": (306, 8, 2048, 1024, 32, bf16)}
+        cases = {}
+        for name, (seed, *shape) in shapes.items():
+            c = bwd_case(torch, seed, *shape, None)
+            cases[name] = {
+                "dispatch_bwd": lambda c=c: k.dispatch_bwd(
+                    c["x"], c["phi_n"], c["g_slots"], c["d_stats"],
+                    c["slots"]),
+                "combine_bwd": lambda c=c: k.combine_bwd(
+                    c["x"], c["phi_n"], c["ys"], c["g"], c["c_stats"],
+                    c["y"])}
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    first, times = {}, {}
+    for i, d in [*enumerate(dirs), *reversed(list(enumerate(dirs)))]:
+        build.CSRC = Path(d).resolve()
+        build.BUILD_DIR = ROOT / "build" / "compare" / str(i)
+        build._loaded.clear()
+        build.build(sources)
+        for case, calls in cases.items():
+            for name, call in calls.items():
+                out = call()
+                out = out if isinstance(out, tuple) else (out,)
+                same = all(torch.equal(a, b) for a, b in
+                           zip(out, first.setdefault((case, name), out)))
+                ms = time_ms(torch, call, flush=flush)
+                times.setdefault((i, case, name), []).append(ms)
+                log(f"[compare] {d} {case} {name}: {ms:.4f} ms; outputs "
+                    f"bitwise equal to {dirs[0]}'s: {same}")
+    for (i, case, name), ms in times.items():
+        log(f"[compare] mean of {len(ms)}: {dirs[i]} {case} {name} "
+            f"{statistics.mean(ms):.4f} ms")
 
 
 def _get(tree, path):

@@ -562,9 +562,6 @@ cudaError_t launch_bwd(Kernel kernel, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-// SC, the slot tile in 32-slot units, for S slots.
-inline int slot_tile_units(int S) { return S <= 32 ? 1 : S <= 64 ? 2 : 4; }
-
 // Dynamic shared memory of one CTA of the main kernel for S slots (dtype
 // code 0 = float32, 1 = bfloat16).
 template <bool COMBINE>
@@ -671,10 +668,6 @@ inline cudaError_t launch_dphi_reduce(const float* part, float* dphi, int B,
 inline bool bwd_shapes_ok(int dtype, int B, int m, int d, int S, int ct) {
   return B >= 0 && B <= 65535 && m > 0 && d > 0 && S > 0 && ct >= 1 &&
          ct <= kCT && dtype >= 0 && dtype <= 1 && d % 8 == 0;
-}
-
-inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace smoe

@@ -4,10 +4,11 @@
 // conversions, the tensor-core pieces (soft_moe_mma.cuh) and the backward
 // kernels K4/K5 (soft_moe_bwd.cuh).
 //
-// The forward kernels contract a (tokens x d) tile against Phi_n (d x
-// slots) into a 32 x 32 tile of logits l2norm(x) . Phi_n, in f32 on the
-// CUDA cores (the TPU kernels cast x and Phi_n to f32 before the dot,
-// _logits_tile in src/repro/kernels/soft_moe_kernels.py:90-96). The
+// K3 and K6 contract a (tokens x d) tile against Phi_n (d x slots) into a
+// 32 x 32 tile of logits l2norm(x) . Phi_n, in f32 on the CUDA cores
+// (logits_tile; the TPU kernels cast x and Phi_n to f32 before the dot,
+// _logits_tile in src/repro/kernels/soft_moe_kernels.py:90-96); K1 and K2
+// form theirs on the tensor cores at f32 accuracy (soft_moe_mma.cuh). The
 // inverse L2 norm of every token comes from a pre-pass (inv_norm_kernel),
 // and a logit is rn[t] * (x[t] . phi[:, s]): the dot runs over the whole
 // of d in order.
@@ -159,7 +160,7 @@ __device__ __forceinline__ void store_logits(float* L, const float dot[2][2],
   }
 }
 
-// d-chunk widths the kernels are built for: 128 * NV columns,
+// d-chunk widths K3 is built for: 128 * NV columns,
 // NV in {1, 2, 3, 6}.
 inline bool valid_d_chunk(int dc) {
   return dc == 128 || dc == 256 || dc == 384 || dc == 768;

@@ -7,8 +7,11 @@
 // TF32; an f32 operand is split into a TF32 high part and a TF32 low
 // part (make_frag), and a product takes as many passes as that needs
 // (mma_f32). Operand tiles are staged from global memory with cp.async
-// (cp16 / cp4, stage_rows, stage_phi).
+// (cp16 / cp4, stage_rows, stage_phi). The forward kernels K1 and K2 form
+// their logits tile with logits_tile_mma.
 #pragma once
+
+#include <type_traits>
 
 #include "soft_moe_common.cuh"
 
@@ -199,6 +202,198 @@ __device__ __forceinline__ void stage_phi(float* dst, int ld, const float* phi,
     const int k = i / NS, s = i - k * NS;
     const bool ok = k0 + k < d && s0 + s < S;
     cp4(dst + k * ld + s, ok ? phi + (size_t)(k0 + k) * S + s0 + s : phi, ok);
+  }
+}
+
+
+// Like stage_rows, for a row count known only at run time.
+template <typename T, int COLS>
+__device__ __forceinline__ void stage_rows_n(T* dst, int ld, const T* src,
+                                             int rows, int n, int d, int c0,
+                                             int tid) {
+  constexpr int V = 16 / sizeof(T), P = COLS / V;
+  for (int i = tid; i < rows * P; i += kThreads) {
+    const int r = i / P, c = (i - r * P) * V;
+    const bool ok = r < n && c0 + c < d;
+    cp16(dst + r * ld + c, ok ? src + (size_t)r * d + c0 + c : src, ok);
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// SC, a slot tile in 32-slot units, for S slots: up to 128 slots a tile.
+inline int slot_tile_units(int S) { return S <= 32 ? 1 : S <= 64 ? 2 : 4; }
+
+// ---------------------------------------------------------------------------
+// the forward kernels' logits tile (K1, K2)
+// ---------------------------------------------------------------------------
+
+constexpr int kKL = 32;     // d depth of one logits stage: one 32-deep slice
+constexpr int kStages = 3;  // cp.async stages of the forward kernels
+
+// One stage of the logits loop for a tile of COLS slots: Phi_n rows
+// [kKL][PS] (f32), then x rows [rows][RS] (x's dtype). Phi_n rows of 4
+// (mod 32) words and x rows of kKL + 8 elements: the fragment loads below
+// meet no bank conflict.
+template <typename T, int COLS>
+struct LogitsStage {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int PS = COLS + 4;
+  static constexpr int RS = kKL + 8;
+  static constexpr int kPhiBytes = kKL * PS * 4;
+  __host__ __device__ static constexpr size_t bytes(int rows) {
+    return ((size_t)kPhiBytes + (size_t)rows * RS * sizeof(T) + 127) / 128 *
+           128;
+  }
+};
+
+// Two neighbouring elements of a row as floats, in one load.
+__device__ __forceinline__ void ld_pair(float& a, float& b, const float* p) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void ld_pair(float& a, float& b,
+                                        const __nv_bfloat16* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  a = __uint_as_float(u << 16);
+  b = __uint_as_float(u & 0xffff0000u);
+}
+
+// The logits of a (tokens x slots) tile over the whole of d, on the tensor
+// cores at f32 accuracy: dot[t][s] = x[t, :] . Phi_n[:, s0 + s] for the nt
+// tokens of x (row stride d) and COLS = 8 WN NT slots from s0 (slots >= S
+// read as zeros). Warps are laid out WM x WN: warp (wm, wn) holds the
+// 16-token m-tiles wm + WM i (i < MT) and the 8-slot n-tiles wn NT + j
+// (j < NT); m-tiles wholly past nt are skipped. x is exact in TF32 when
+// bf16 and split when f32; Phi_n is split: two passes a product, or three.
+// A fragment's k = t and k = t + 4 are the stage's columns 2t and 2t + 1
+// (one load for both; Phi_n's fragment takes the same rows, so each
+// product still pairs the same d index).
+// Each 32-deep slice is summed on the tensor cores into zeroed fragments
+// and the slices are added in f32 on the CUDA cores, in d order. d
+// streams through kStages cp.async buffers of `stage_bytes` each (at least
+// LogitsStage<T, COLS>::bytes(nt rounded up to 16)) from `stage`.
+// Ends with no copy in flight and every warp past the loop, then calls
+// epi(tl, sl, dot) for each element of each live m-tile (tl <
+// round_up(nt, 16), sl < COLS); the caller synchronises after it.
+template <typename T, int WM, int WN, int MT, int NT, typename Epi>
+__device__ __forceinline__ void logits_tile_mma(const T* x, int nt,
+                                                const float* phi, int S,
+                                                int s0, int d, bool phi_vec,
+                                                char* stage,
+                                                size_t stage_bytes, int tid,
+                                                Epi epi) {
+  using G = LogitsStage<T, 8 * WN * NT>;
+  constexpr bool F32 = G::kF32;
+  constexpr int COLS = 8 * WN * NT, PS = G::PS, RS = G::RS;
+  // one fragment a warp holds: two chains of mma (the high x high pass
+  // apart from the small ones) keep the tensor cores busy; more give
+  // independent chains of their own
+  constexpr bool kTwo = MT * NT <= 2;
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;
+  const int rows = (nt + 15) & ~15;
+  const int nk = (d + kKL - 1) / kKL;
+  auto fill = [&](int kt) {
+    char* sb = stage + (size_t)(kt % kStages) * stage_bytes;
+    stage_phi<kKL, COLS>(reinterpret_cast<float*>(sb), PS, phi, d, S,
+                         kt * kKL, s0, phi_vec, tid);
+    stage_rows_n<T, kKL>(reinterpret_cast<T*>(sb + G::kPhiBytes), RS, x, rows,
+                         nt, d, kt * kKL, tid);
+  };
+  float acc[MT][NT][4], pb[MT][NT][4], ps[kTwo ? MT : 1][kTwo ? NT : 1][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) zero(acc[i]);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) fill(s);
+    cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<kStages - 2>();
+    __syncthreads();  // stage kt is in; every warp is done with kt - 1
+    if (kt + kStages - 1 < nk) fill(kt + kStages - 1);
+    cp_commit();
+    const char* sb = stage + (size_t)(kt % kStages) * stage_bytes;
+    const float* pa = reinterpret_cast<const float*>(sb);
+    const T* xa = reinterpret_cast<const T*>(sb + G::kPhiBytes);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      zero(pb[i]);
+      if (kTwo) zero(ps[kTwo ? i : 0]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKL; kk += 8) {
+      auto mma = [&](int i, int j, const Frag<4>& fa, const Frag<2>& fb) {
+        if constexpr (kTwo)
+          mma_f32<F32, true>(pb[i][j], ps[i][j], fa, fb);
+        else
+          mma_f32<F32, true>(pb[i][j], pb[i][j], fa, fb);
+      };
+      auto frag_a = [&](Frag<4>& fa, int i) {
+        const T* p = xa + ((wm + WM * i) * 16 + g) * RS + kk + 2 * t;
+        float v[4];
+        ld_pair(v[0], v[2], p);
+        ld_pair(v[1], v[3], p + 8 * RS);
+        make_frag<F32>(fa, v);
+      };
+      auto frag_b = [&](Frag<2>& fb, int j) {
+        const float* p = pa + (kk + 2 * t) * PS + (wn * NT + j) * 8 + g;
+        const float w[2] = {p[0], p[PS]};
+        make_frag<true>(fb, w);
+      };
+      if constexpr (NT == 1) {  // one Phi_n fragment, the x ones in turn
+        Frag<2> fb;
+        frag_b(fb, 0);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          if ((wm + WM * i) * 16 >= nt) continue;
+          Frag<4> fa;
+          frag_a(fa, i);
+          mma(i, 0, fa, fb);
+        }
+      } else {  // one x fragment a m-tile, the Phi_n ones in turn
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          if ((wm + WM * i) * 16 >= nt) continue;
+          Frag<4> fa;
+          frag_a(fa, i);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            Frag<2> fb;
+            frag_b(fb, j);
+            mma(i, j, fa, fb);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] +=
+              kTwo ? ps[kTwo ? i : 0][kTwo ? j : 0][e] + pb[i][j][e]
+                   : pb[i][j][e];
+  }
+  cp_wait<0>();
+  __syncthreads();  // the stages are free for the caller
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int r0 = (wm + WM * i) * 16;
+    if (r0 >= nt) continue;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          epi(r0 + g + 8 * h, (wn * NT + j) * 8 + 2 * t + e,
+              acc[i][j][2 * h + e]);
   }
 }
 

@@ -39,11 +39,14 @@ The plain versions repeat the kernels' tile recurrences in PyTorch, with
 tests can pin them to the JAX kernels' tiling. Each batch row runs on its
 own, so row i of a batch equals that row run alone, bitwise; dPhi_n, the
 one output that sums over rows, is the sum of the rows' own partials in
-row order, as the CUDA kernels form it. K6 splits each row's tokens into
-chunks of ``HEALTH_TILES`` token blocks and sums the chunks' partials in
-chunk order, as its kernel does; K4 and K5 do the same for dPhi_n and
-dYs with chunks of ``BWD_TILES`` token blocks, and a row's dPhi_n is the
-sum of its chunks' partials in chunk order.
+row order, as the CUDA kernels form it. K1 takes each chunk's dispatch
+softmax on its own (chunks of ``tuning.routing_chunk`` tokens) and
+merges the chunks in chunk order, and the slot blocks' combine partials
+in slot-block order, as its kernel does. K6 splits each row's tokens
+into chunks of ``HEALTH_TILES`` token blocks and sums the chunks'
+partials in chunk order, as its kernel does; K4 and K5 do the same for
+dPhi_n and dYs with chunks of ``BWD_TILES`` token blocks, and a row's
+dPhi_n is the sum of its chunks' partials in chunk order.
 """
 from __future__ import annotations
 
@@ -54,16 +57,18 @@ import torch
 
 from .tuning import (
     BWD_TILES,
+    FWD_TILES,
     HEALTH_TILES,
     SOFT_MOE_TILE,
     KernelConfig,
     d_chunk,
     default_config,
+    routing_chunk,
 )
 
 _NEG = -1e30
 _EPS = 1e-6  # must match ref.l2_normalize
-_BWD_SLOT_TILE = 128  # slots one CUDA block of K4 / K5 holds at a time
+_SLOT_TILE = 128  # slots one CUDA block of K2, K4 or K5 holds at a time
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -103,34 +108,35 @@ def _logits(xf, rn, phi):
     return (xf @ phi) * rn[:, None]
 
 
-def _routing_row(xf, phi, bt, bs):
-    """K1's recurrence for one row: xf (m, d) f32, phi (d, S) f32."""
+def _routing_row(xf, phi, bs, ct):
+    """K1's recurrence for one row: xf (m, d) f32, phi (d, S) f32, slot
+    blocks of bs, token chunks of ct."""
     m = xf.shape[0]
     rn = _inv_norm(xf)
     slots, dmx, dden, parts = [], [], [], []
-    for s0 in range(0, phi.shape[1], bs):
-        ph = phi[:, s0:s0 + bs]
-        mx = torch.full((ph.shape[1],), _NEG, device=xf.device)
-        den = torch.zeros(ph.shape[1], device=xf.device)
-        acc = torch.zeros(ph.shape[1], xf.shape[1], device=xf.device)
-        pm, pd = [], []
-        for t0 in range(0, m, bt):
-            xt = xf[t0:t0 + bt]
-            lg = _logits(xt, rn[t0:t0 + bt], ph)  # (nt, ns)
-            # combine direction: this slot block's partial per token
-            pm.append(lg.amax(1))
-            pd.append(torch.exp(lg - pm[-1][:, None]).sum(1))
-            # dispatch direction: online softmax over tokens
-            m_new = torch.maximum(mx, lg.amax(0))
-            corr = torch.exp(mx - m_new)
-            p = torch.exp(lg - m_new)
-            den = den * corr + p.sum(0)
-            acc = acc * corr[:, None] + p.T @ xt
-            mx = m_new
+    for s0 in range(0, phi.shape[1], bs):  # a CUDA block per (chunk, s0)
+        lg = _logits(xf, rn, phi[:, s0:s0 + bs])  # (m, ns)
+        # combine direction: this slot block's partial per token
+        pm = lg.amax(1)
+        parts.append((pm, torch.exp(lg - pm[:, None]).sum(1)))
+        # dispatch direction: each chunk's softmax over its tokens
+        chunks = []
+        for t0 in range(0, m, ct):
+            lc = lg[t0:t0 + ct]
+            mx = lc.amax(0)
+            p = torch.exp(lc - mx)
+            chunks.append((mx, p.sum(0), p.T @ xf[t0:t0 + ct]))
+        # the chunks merged in chunk order
+        mx = torch.stack([c[0] for c in chunks]).amax(0)
+        den = torch.zeros_like(mx)
+        acc = torch.zeros_like(chunks[0][2])
+        for c_mx, c_den, c_acc in chunks:
+            w = torch.exp(c_mx - mx)
+            den = den + c_den * w
+            acc = acc + c_acc * w[:, None]
         slots.append(acc / den[:, None])
         dmx.append(mx)
         dden.append(den)
-        parts.append((torch.cat(pm), torch.cat(pd)))
     # merge the partials in slot-block order
     c_mx = torch.full((m,), _NEG, device=xf.device)
     c_den = torch.zeros(m, device=xf.device)
@@ -148,14 +154,16 @@ def routing_fwd_ref(x, phi_n, cfg: Optional[KernelConfig] = None):
     b, m, d, s = _shapes(x, phi_n)
     cfg = _resolve(cfg, m, d, s)
     phi = phi_n.float()
-    rows = [_routing_row(x[i].float(), phi, cfg.block_tokens,
-                         cfg.block_slots) for i in range(b)]
+    ct = routing_chunk(m, s, cfg.block_tokens)
+    rows = [_routing_row(x[i].float(), phi, cfg.block_slots, ct)
+            for i in range(b)]
     slots, dmx, dden, cmx, cden = (torch.stack(t) for t in zip(*rows))
     return slots.to(x.dtype), (dmx, dden), (cmx, cden)
 
 
 def _combine_row(xf, phi, ysf, bt, bs, c_mx=None, c_den=None):
-    """K2's (stats given) or K3's (online) recurrence for one row."""
+    """K2's (stats given: C normalised before the product) or K3's
+    (online) recurrence for one row."""
     m = xf.shape[0]
     rn = _inv_norm(xf)
     ys, mxs, dens = [], [], []
@@ -178,8 +186,9 @@ def _combine_row(xf, phi, ysf, bt, bs, c_mx=None, c_den=None):
                 acc = acc * corr[:, None] + p @ ysf[s0:s0 + bs]
                 mx = m_new
             else:  # exact weights from the saved stats: no rescale
-                acc = acc + torch.exp(lg - mx[:, None]) @ ysf[s0:s0 + bs]
-        ys.append(acc / den[:, None])
+                c_w = torch.exp(lg - mx[:, None]) / den[:, None]
+                acc = acc + c_w @ ysf[s0:s0 + bs]
+        ys.append(acc if c_mx is not None else acc / den[:, None])
         mxs.append(mx)
         dens.append(den)
     return torch.cat(ys), torch.cat(mxs), torch.cat(dens)
@@ -535,22 +544,30 @@ def routing_fwd(x, phi_n, cfg: Optional[KernelConfig] = None):
         return routing_fwd_ref(x, phi_n, cfg)
     _refuse_grad(x, phi_n)
     _check_cuda(cfg, x, phi_n)
-    nsb = -(-s // cfg.block_slots)
+    ct = routing_chunk(m, s, cfg.block_tokens)
+    nch, nsb = -(-m // ct), -(-s // cfg.block_slots)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     slots = torch.empty((b, s, d), dtype=x.dtype, device=dev)
     d_mx, d_den = torch.empty((b, s), **f32), torch.empty((b, s), **f32)
     c_mx, c_den = torch.empty((b, m), **f32), torch.empty((b, m), **f32)
     rn = torch.empty((b, m), **f32)
-    part_mx = torch.empty((b, nsb, m), **f32)
-    part_den = torch.empty((b, nsb, m), **f32)
-    fn = _launcher("soft_moe_routing", "soft_moe_routing_launch", 10, 8)
+    # the second pass's scratch, where a row has several slot blocks (the
+    # combine partials) or several chunks (the slot partials)
+    none = torch.empty(0, **f32)
+    c_part = [torch.empty((b, nsb, m), **f32) if nsb > 1 else none
+              for _ in range(2)]
+    s_part = torch.empty((b, nch, s, d), **f32) if nch > 1 else none
+    s_stats = [torch.empty((b, nch, s), **f32) if nch > 1 else none
+               for _ in range(2)]
+    fn = _launcher("soft_moe_routing", "soft_moe_routing_launch", 13, 7)
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), phi_n.data_ptr(), slots.data_ptr(),
                  d_mx.data_ptr(), d_den.data_ptr(), c_mx.data_ptr(),
-                 c_den.data_ptr(), rn.data_ptr(), part_mx.data_ptr(),
-                 part_den.data_ptr(), _DTYPE_CODE[x.dtype], b, m, d, s,
-                 cfg.block_tokens, cfg.block_slots, d_chunk(d),
+                 c_den.data_ptr(), rn.data_ptr(), c_part[0].data_ptr(),
+                 c_part[1].data_ptr(), s_part.data_ptr(),
+                 s_stats[0].data_ptr(), s_stats[1].data_ptr(),
+                 _DTYPE_CODE[x.dtype], b, m, d, s, ct, cfg.block_slots,
                  _stream(dev))
     if err != 0:
         raise RuntimeError(f"soft_moe_routing launch failed: cudaError {err}")
@@ -561,24 +578,40 @@ def routing_fwd(x, phi_n, cfg: Optional[KernelConfig] = None):
 routing_fwd.launches = 0
 
 
-def _combine_cuda(x, phi_n, ys, c_stats, cfg):
-    b, m, d, s = x.shape[0], x.shape[1], x.shape[2], phi_n.shape[1]
-    online = c_stats is None
-    dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    if online:
-        c_mx, c_den = torch.empty((b, m), **f32), torch.empty((b, m), **f32)
-    else:
-        c_mx, c_den = c_stats
-    y = torch.empty((b, m, d), dtype=x.dtype, device=dev)
+def _combine_apply_cuda(x, phi_n, ys, c_stats, cfg):
+    b, m, d = x.shape
+    s = phi_n.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
     rn = torch.empty((b, m), **f32)
-    fn = _launcher("soft_moe_combine", "soft_moe_combine_launch", 7, 9)
-    with torch.cuda.device(dev):
+    y_acc = torch.empty((b, m, d), **f32) if s > _SLOT_TILE else None
+    fn = _launcher("soft_moe_combine", "soft_moe_combine_apply_launch", 8, 6)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), phi_n.data_ptr(), ys.data_ptr(),
+                 c_stats[0].data_ptr(), c_stats[1].data_ptr(), y.data_ptr(),
+                 rn.data_ptr(), 0 if y_acc is None else y_acc.data_ptr(),
+                 _DTYPE_CODE[x.dtype], b, m, d, s,
+                 cfg.block_tokens * FWD_TILES, _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"soft_moe_combine launch failed: cudaError {err}")
+    return y
+
+
+def _combine_online_cuda(x, phi_n, ys, cfg):
+    b, m, d = x.shape
+    s = phi_n.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    c_mx, c_den = torch.empty((b, m), **f32), torch.empty((b, m), **f32)
+    y = torch.empty_like(x)
+    rn = torch.empty((b, m), **f32)
+    fn = _launcher("soft_moe_combine", "soft_moe_combine_online_launch", 7,
+                   8)
+    with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), phi_n.data_ptr(), ys.data_ptr(),
                  c_mx.data_ptr(), c_den.data_ptr(), y.data_ptr(),
-                 rn.data_ptr(), int(online), _DTYPE_CODE[x.dtype], b, m, d,
-                 s, cfg.block_tokens, cfg.block_slots, d_chunk(d),
-                 _stream(dev))
+                 rn.data_ptr(), _DTYPE_CODE[x.dtype], b, m, d, s,
+                 cfg.block_tokens, cfg.block_slots, d_chunk(d),
+                 _stream(x.device))
     if err != 0:
         raise RuntimeError(f"soft_moe_combine launch failed: cudaError {err}")
     return y, (c_mx, c_den)
@@ -597,7 +630,7 @@ def combine_apply(x, phi_n, ys, c_stats, cfg: Optional[KernelConfig] = None):
         return combine_apply_ref(x, phi_n, ys, c_stats, cfg)
     _refuse_grad(x, phi_n, ys, *c_stats)
     _check_cuda(cfg, x, phi_n, {"ys": ys}, tuple(c_stats))
-    y = _combine_cuda(x, phi_n, ys, tuple(c_stats), cfg)[0]
+    y = _combine_apply_cuda(x, phi_n, ys, tuple(c_stats), cfg)
     combine_apply.launches += 1
     return y
 
@@ -615,7 +648,7 @@ def combine_online(x, phi_n, ys, cfg: Optional[KernelConfig] = None):
         return combine_online_ref(x, phi_n, ys, cfg)
     _refuse_grad(x, phi_n, ys)
     _check_cuda(cfg, x, phi_n, {"ys": ys})
-    out = _combine_cuda(x, phi_n, ys, None, cfg)
+    out = _combine_online_cuda(x, phi_n, ys, cfg)
     combine_online.launches += 1
     return out
 
@@ -632,7 +665,7 @@ def _bwd_scratch(b, m, d, s, cfg, dev, n_dots, n_parts):
     f32 = dict(dtype=torch.float32, device=dev)
     nch = -(-m // (cfg.block_tokens * BWD_TILES))
     parts = [torch.empty((b, nch, s, d), **f32) for _ in range(n_parts)]
-    dx_acc = torch.empty((b, m, d), **f32) if s > _BWD_SLOT_TILE else None
+    dx_acc = torch.empty((b, m, d), **f32) if s > _SLOT_TILE else None
     return (torch.empty((b, m), **f32), torch.empty((b, m), **f32),
             torch.empty(n_dots, **f32), parts, dx_acc)
 

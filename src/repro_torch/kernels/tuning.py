@@ -5,20 +5,36 @@ Soft-MoE kernels (K1 routing, K2/K3 combine, K4/K5 their backward;
 kernels/soft_moe_kernels.py):
 ``block_tokens`` and ``block_slots`` have the JAX fields' meaning (the
 token and slot blocks of the online softmaxes), so a test can pin the
-plain versions to the TPU kernel's tiling. The CUDA kernels hold a
-32 x 32 logits tile (one warp lane per token or slot in the softmax
-steps, four logits per thread of 256), so they take blocks of at most 32
-(``SOFT_MOE_TILE``); the Hopper default is 32 for both, clamped to the
-problem as the JAX heuristic clamps. The d-chunk is not a setting: a TPU
-tile holds a whole row of d, but at d = 768 a (128 x 768) f32
-accumulator is 393 KB against the 227 KB of shared memory a block may
-use, so each CUDA block accumulates one chunk of d for a 32-slot (or
-32-token) block, in registers, and recomputes the logits tile once per
-chunk: a factor ceil(d / chunk) on the logits arithmetic. The kernels
-are built for chunks of 128, 256, 384 and 768 columns (``D_CHUNKS``);
-``d_chunk(d)`` takes the narrowest one that covers d, so up to d = 768
-there is one chunk and no recompute, and wider rows (L/16's 1024, H/14's
-1280) use 768-column chunks.
+plain versions to the TPU kernel's tiling. The CUDA kernels take blocks
+of at most 32 (``SOFT_MOE_TILE``: one warp lane per token or slot in the
+softmax steps); the Hopper default is 32 for both, clamped to the
+problem as the JAX heuristic clamps.
+
+The routing kernel (K1) cuts a row's tokens into chunks of
+``routing_chunk(m, S, block_tokens)`` tokens and its slots into slot
+tiles of ``block_slots``, one CUDA block per (chunk, slot tile, row): the
+block forms its logits once over the whole of d, takes the chunk's
+dispatch softmax and writes the chunk's slots; where a row has several
+chunks a second pass merges them in chunk order. A chunk is at least
+``FWD_TILES`` token blocks and at least 2 S tokens (a chunk's slot
+partials, S d f32 written and read, then cost at most twice its bf16
+tokens), at most ``ROUTING_MAX_CHUNK`` tokens (its logits tile lives in
+shared memory) and at most the row: the ViTs' rows (m = 196, S = 128)
+are one chunk and write no partials, the granite LM layer's (m = 2048,
+S = 32) 32 chunks of 64 tokens. The combine from saved stats (K2) takes
+chunks of ``FWD_TILES`` token blocks, one CUDA block per (chunk, row);
+its tokens need no partials. Neither depends on the batch, so a row's
+outputs do not either.
+
+The online combine (K3) keeps the d-chunk design: a TPU tile holds a
+whole row of d, but at d = 768 a (128 x 768) f32 accumulator is 393 KB
+against the 227 KB of shared memory a block may use, so each CUDA block
+accumulates one chunk of d for a 32-token block, in registers, and
+recomputes the logits tile once per chunk: a factor ceil(d / chunk) on
+the logits arithmetic. It is built for chunks of 128, 256, 384 and 768
+columns (``D_CHUNKS``); ``d_chunk(d)`` takes the narrowest one that
+covers d, so up to d = 768 there is one chunk and no recompute, and
+wider rows (L/16's 1024, H/14's 1280) use 768-column chunks.
 
 ``paged_block_kv`` is the number of KV rows one online-softmax update of
 the paged decode kernel folds in. Pool blocks of up to 128 rows (the
@@ -40,8 +56,8 @@ chunks of ``BWD_TILES`` token blocks (64 tokens at the default 32-token
 block), one CUDA block per (chunk, row): it builds its chunk's weights
 for every slot once and writes dX and the chunk's dPhi_n (and dYs)
 partials, which a second pass sums in chunk order, then over rows in
-row order. They take no d-chunk: ``D_CHUNKS`` and ``d_chunk()`` are the
-forward kernels'.
+row order. They take no d-chunk: ``D_CHUNKS`` and ``d_chunk()`` are
+K3's.
 """
 from __future__ import annotations
 
@@ -53,7 +69,9 @@ import torch
 
 
 SOFT_MOE_TILE = 32  # largest token / slot block of the CUDA kernels
-D_CHUNKS = (128, 256, 384, 768)  # d-chunk widths the kernels are built for
+D_CHUNKS = (128, 256, 384, 768)  # d-chunk widths K3 is built for
+FWD_TILES = 2  # token blocks of a K2 chunk and of the smallest K1 chunk
+ROUTING_MAX_CHUNK = 256  # most tokens of a K1 chunk
 HEALTH_TILES = 2  # token blocks one block of the routing-health kernel reduces
 BWD_TILES = 2  # token blocks of one chunk of the backward kernels K4, K5
 
@@ -87,9 +105,18 @@ def default_config(m: int, d: int, s: int,
 
 
 def d_chunk(d: int) -> int:
-    """Columns of d one Soft-MoE CUDA block accumulates: the narrowest
-    built width that covers d, or the widest where none does."""
+    """Columns of d one block of the online combine (K3) accumulates: the
+    narrowest built width that covers d, or the widest where none does."""
     return next((w for w in D_CHUNKS if w >= d), D_CHUNKS[-1])
+
+
+def routing_chunk(m: int, s: int, bt: int) -> int:
+    """Tokens of one chunk of the routing kernel (K1) for m tokens, S
+    slots and token blocks of bt: whole token blocks, at least
+    ``FWD_TILES`` of them and at least 2 S tokens, at most
+    ``ROUTING_MAX_CHUNK`` tokens and at most the row."""
+    want = max(FWD_TILES * bt, _round_up(2 * s, bt))
+    return min(want, ROUTING_MAX_CHUNK // bt * bt, _round_up(m, bt))
 
 
 def config_from_moe(moe_cfg, m: int, d: int) -> KernelConfig:

@@ -3,7 +3,8 @@
 - The plain versions of K1 (routing), K2 (combine from saved stats) and
   K3 (online combine), which the wrappers run on CPU tensors, against the
   JAX Pallas kernels in interpret mode at the same tiling (ragged tokens,
-  several slot blocks), and against the single-sequence oracle
+  several slot blocks, rows over several K1 token chunks with a ragged
+  last one), and against the single-sequence oracle
   ``kernels/ref.py`` of both packages: f32, atol 1e-5 and rtol 1e-5 (the
   two sides sum in other orders).
 - ``soft_moe_apply`` on the einsum and the kernel path, with and without
@@ -42,6 +43,7 @@ from repro_torch.kernels.tuning import (
     config_from_moe,
     d_chunk,
     default_config,
+    routing_chunk,
 )
 
 ATOL = RTOL = 1e-5
@@ -86,8 +88,12 @@ def _inputs(seed, b, m, d, s, scale=1.3):
 
 
 # (b, m, d, S, block_tokens, block_slots): ragged tokens and several slot
-# blocks; a ragged last slot block; one row with a single token block.
-TILED = [(3, 20, 32, 20, 8, 8), (2, 45, 48, 40, 16, 16), (1, 9, 16, 24, 8, 8)]
+# blocks; a ragged last slot block; one row with a single token block;
+# rows over several K1 chunks (tuning.routing_chunk) with a ragged last
+# one: three chunks of 24 tokens (24, 24, 22) over two slot blocks (8 +
+# 4), and four of 32 (32, 32, 32, 4) in one slot block.
+TILED = [(3, 20, 32, 20, 8, 8), (2, 45, 48, 40, 16, 16), (1, 9, 16, 24, 8, 8),
+         (2, 70, 24, 12, 8, 8), (1, 100, 16, 6, 16, 8)]
 
 
 @pytest.mark.parametrize("b,m,d,s,bt,bs", TILED)
@@ -298,6 +304,21 @@ def test_wrappers_run_plain_versions_on_cpu_and_count_no_launch():
             combine_online.launches) == before
 
 
+def test_routing_chunk_policy():
+    # K1's token chunk: whole token blocks, at least FWD_TILES (2) of them
+    # and 2 S tokens, at most 256 and the row; never the batch
+    assert routing_chunk(196, 128, 32) == 224  # B/16: one chunk
+    assert routing_chunk(196, 128, 16) == 208  # pinned 16-token blocks
+    assert routing_chunk(2048, 32, 32) == 64   # granite: 32 chunks
+    assert routing_chunk(256, 256, 32) == 256  # S/14-256E: one chunk
+    assert routing_chunk(4096, 512, 24) == 240  # the cap, in whole blocks
+    assert routing_chunk(70, 12, 8) == 24 and routing_chunk(100, 6, 16) == 32
+    # TILED's rows: the first three are one chunk each
+    assert all(routing_chunk(m, s, bt) >= m for _, m, _, s, bt, _ in TILED[:3])
+    assert all(-(-m // routing_chunk(m, s, bt)) > 2
+               for _, m, _, s, bt, _ in TILED[3:])
+
+
 def test_tile_policy():
     # Hopper default: 32 x 32 blocks, clamped to the problem; the
     # narrowest built d-chunk that covers d, else the widest
@@ -328,9 +349,12 @@ def cuda():
 
 
 # (b, m, d, S, cfg): ragged tokens and slots; a chunk wider than d
-# (264 of 384 columns) and L/16's d = 1024 over two 768-column chunks
+# (264 of 384 columns) and L/16's d = 1024 over two 768-column chunks (K3);
+# a reduced granite layer: K1 over five 64-token chunks, the last ragged
+# (300 = 4 x 64 + 44)
 CUDA_CASES = [(3, 70, 264, 40, None),
-              (2, 45, 1024, 40, KernelConfig(block_tokens=16, block_slots=8))]
+              (2, 45, 1024, 40, KernelConfig(block_tokens=16, block_slots=8)),
+              (2, 300, 1024, 32, None)]
 
 
 @pytest.mark.cuda
@@ -365,6 +389,11 @@ def test_cuda_kernels_match_plain_versions(cuda, dtype, rtol, case):
     for i in range(b):
         gi = routing_fwd(x[i:i + 1], phi_n, cfg)
         assert torch.equal(gi[0][0], got[0][i])
+        assert all(torch.equal(g[0], w[i])
+                   for g, w in zip(gi[1] + gi[2], got[1] + got[2]))
+        stats_i = tuple(s[i:i + 1] for s in want[2])
+        assert torch.equal(combine_apply(x[i:i + 1], phi_n, ys[i:i + 1],
+                                         stats_i, cfg)[0], y2[i])
         assert torch.equal(combine_online(x[i:i + 1], phi_n, ys[i:i + 1],
                                           cfg)[0][0], y3[i])
 
