@@ -2491,6 +2491,11 @@ def compare_builds(torch, dirs, which="forward"):
                 "combine_bwd": lambda c=c: k.combine_bwd(
                     c["x"], c["phi_n"], c["ys"], c["g"], c["c_stats"],
                     c["y"])}
+    def flat(out):  # the outputs, nested tuples unpacked, in order
+        if isinstance(out, tuple):
+            return [t for o in out for t in flat(o)]
+        return [out]
+
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     first, times = {}, {}
     for i, d in [*enumerate(dirs), *reversed(list(enumerate(dirs)))]:
@@ -2500,8 +2505,7 @@ def compare_builds(torch, dirs, which="forward"):
         build.build(sources)
         for case, calls in cases.items():
             for name, call in calls.items():
-                out = call()
-                out = out if isinstance(out, tuple) else (out,)
+                out = flat(call())
                 same = all(torch.equal(a, b) for a, b in
                            zip(out, first.setdefault((case, name), out)))
                 ms = time_ms(torch, call, flush=flush)
