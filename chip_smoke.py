@@ -783,7 +783,7 @@ def phase_soft_moe_kernels(torch):
             ("kernel", kern), ("sdpa", lib_call), ("einsum", einsum[kind]))}
         bound_ms, bound_by, nbytes, flops = soft_moe_bounds(x, s, kind)
         design = ""
-        if name != "combine_online":  # K3 keeps PR 12's design
+        if name != "combine_online":  # K3 keeps its d-chunk design
             design_ms, design_by, d_bytes, d_ops = soft_moe_fwd_design_bound(
                 x, s, kind)
             design = (f"; design bound={design_ms * 1e3:.2f} us ({design_by}"

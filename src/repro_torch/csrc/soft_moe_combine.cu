@@ -37,13 +37,13 @@
 // cores. A token's output is whole in one CTA: no partials; over 128
 // slots an f32 scratch carries y between slot tiles.
 //
-// K3's design (PR 12's): one CTA per (d-chunk, token block, row) that
-// loops over the row's slot blocks itself (the TPU kernel's sequential
-// slot grid axis), carrying the (tokens x d-chunk) accumulator in
-// registers and the per-token (max, denom) in shared memory. Each CTA
-// recomputes the logits tile over the whole of d: ceil(d / d_chunk) times
-// the minimum logits arithmetic (the tile policy takes one chunk up to d =
-// 768, so no recompute at B/16). f32 FMA on the CUDA cores.
+// K3's design: one CTA per (d-chunk, token block, row) that loops over
+// the row's slot blocks itself (the TPU kernel's sequential slot grid
+// axis), carrying the (tokens x d-chunk) accumulator in registers and the
+// per-token (max, denom) in shared memory. Each CTA recomputes the logits
+// tile over the whole of d: ceil(d / d_chunk) times the minimum logits
+// arithmetic (the tile policy takes one chunk up to d = 768, so no
+// recompute at B/16). f32 FMA on the CUDA cores.
 //
 // In both, a row's reduction stays in one CTA in a fixed order, so row i
 // of a batched launch equals a batch-1 launch bitwise.
@@ -54,7 +54,7 @@ namespace {
 using namespace smoe;
 
 // ---------------------------------------------------------------------------
-// K3: the online combine (PR 12's body)
+// K3: the online combine (the d-chunk body)
 // ---------------------------------------------------------------------------
 
 struct CombineArgs {
