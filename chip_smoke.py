@@ -804,8 +804,6 @@ def phase_soft_moe_kernels(torch):
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
                      "einsum_path_ms": einsum_ms}
-        if design:
-            out[name]["design_bound_ms"] = design_ms
 
     # K1 and K2 at the granite layer's shapes, as the LM training phase
     # runs them (b=8, m=2048, d=1024, S=32, bf16): 32 token chunks a row
@@ -843,8 +841,7 @@ def phase_soft_moe_kernels(torch):
         launch_times(torch, kern, shape, name)
         out[name]["granite"] = {"ms": ms, "bound_ms": bound_ms,
                                 "library_ms": library_ms,
-                                "einsum_path_ms": einsum_ms,
-                                "design_bound_ms": design_ms}
+                                "einsum_path_ms": einsum_ms}
     return out
 
 
@@ -1165,8 +1162,7 @@ def phase_soft_moe_bwd_kernels(torch):
             launch_times(torch, kern, shape, name, "softmoe-bwd")
             row = {"ms": kernel_ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": library_ms, "einsum_path_ms": einsum_ms,
-                   "design_bound_ms": design_ms}
+                   "library_ms": library_ms, "einsum_path_ms": einsum_ms}
             if c is granite:
                 out[name]["granite"] = row
             else:
@@ -2441,80 +2437,6 @@ def phase_lm_train(torch, card):
     del state, trainer, step_on, step_off
     torch.cuda.empty_cache()
     return {"routing_health": launches[5]}
-
-
-# ---------------------------------------------------------------------------
-# comparing builds of the Soft-MoE kernels (not run by main)
-# ---------------------------------------------------------------------------
-
-
-def compare_builds(torch, dirs, which="forward"):
-    """Build the Soft-MoE kernels from each copy of ``csrc/`` in ``dirs``
-    in one process and time them in turns (each build, then in reverse
-    order), L2 flushed, at the B/16 and the granite layer: K1 and K2
-    (``which="forward"``) or K4 and K5 (``"backward"``, also on f32 and
-    several-chunk cases). Logs whether each build's outputs equal the
-    first's bitwise and each kernel's mean time per build. For variants of
-    a kernel on one card: copy ``src/repro_torch/csrc`` into a git-ignored
-    directory, edit it, and run ``python3 -c "import torch, chip_smoke as
-    c; c.phase_device(torch); c.compare_builds(torch, ['build/a',
-    'build/b'])"``."""
-    from repro_torch.kernels import build
-    from repro_torch.kernels import soft_moe_kernels as k
-
-    bf16, f32 = torch.bfloat16, torch.float32
-    if which == "forward":
-        sources = ["soft_moe_routing", "soft_moe_combine"]
-        shapes = {"b16": (100, 64, 196, 768, 128, bf16),
-                  "granite": (107, 8, 2048, 1024, 32, bf16)}
-        cases = {}
-        for name, (seed, *shape) in shapes.items():
-            x, phi, ys = soft_moe_case(torch, seed, *shape)
-            stats = k.routing_fwd_ref(x, phi)[2]
-            cases[name] = {
-                "routing_fwd": lambda x=x, phi=phi: k.routing_fwd(x, phi),
-                "combine_apply": lambda x=x, phi=phi, ys=ys, st=stats:
-                    k.combine_apply(x, phi, ys, st)}
-    else:
-        sources = ["soft_moe_dispatch_bwd", "soft_moe_combine_bwd"]
-        shapes = {"b16": (300, 64, 196, 768, 128, bf16),
-                  "b16 f32": (301, 64, 196, 768, 128, f32),
-                  "m300 S150 f32": (305, 2, 300, 264, 150, f32),
-                  "granite": (306, 8, 2048, 1024, 32, bf16)}
-        cases = {}
-        for name, (seed, *shape) in shapes.items():
-            c = bwd_case(torch, seed, *shape, None)
-            cases[name] = {
-                "dispatch_bwd": lambda c=c: k.dispatch_bwd(
-                    c["x"], c["phi_n"], c["g_slots"], c["d_stats"],
-                    c["slots"]),
-                "combine_bwd": lambda c=c: k.combine_bwd(
-                    c["x"], c["phi_n"], c["ys"], c["g"], c["c_stats"],
-                    c["y"])}
-    def flat(out):  # the outputs, nested tuples unpacked, in order
-        if isinstance(out, tuple):
-            return [t for o in out for t in flat(o)]
-        return [out]
-
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    first, times = {}, {}
-    for i, d in [*enumerate(dirs), *reversed(list(enumerate(dirs)))]:
-        build.CSRC = Path(d).resolve()
-        build.BUILD_DIR = ROOT / "build" / "compare" / str(i)
-        build._loaded.clear()
-        build.build(sources)
-        for case, calls in cases.items():
-            for name, call in calls.items():
-                out = flat(call())
-                same = all(torch.equal(a, b) for a, b in
-                           zip(out, first.setdefault((case, name), out)))
-                ms = time_ms(torch, call, flush=flush)
-                times.setdefault((i, case, name), []).append(ms)
-                log(f"[compare] {d} {case} {name}: {ms:.4f} ms; outputs "
-                    f"bitwise equal to {dirs[0]}'s: {same}")
-    for (i, case, name), ms in times.items():
-        log(f"[compare] mean of {len(ms)}: {dirs[i]} {case} {name} "
-            f"{statistics.mean(ms):.4f} ms")
 
 
 def _get(tree, path):

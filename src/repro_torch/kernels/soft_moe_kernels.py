@@ -57,10 +57,10 @@ import torch
 
 from .tuning import (
     BWD_TILES,
-    FWD_TILES,
     HEALTH_TILES,
     SOFT_MOE_TILE,
     KernelConfig,
+    combine_chunk,
     d_chunk,
     default_config,
     routing_chunk,
@@ -591,7 +591,7 @@ def _combine_apply_cuda(x, phi_n, ys, c_stats, cfg):
                  c_stats[0].data_ptr(), c_stats[1].data_ptr(), y.data_ptr(),
                  rn.data_ptr(), 0 if y_acc is None else y_acc.data_ptr(),
                  _DTYPE_CODE[x.dtype], b, m, d, s,
-                 cfg.block_tokens * FWD_TILES, _stream(x.device))
+                 combine_chunk(cfg.block_tokens), _stream(x.device))
     if err != 0:
         raise RuntimeError(f"soft_moe_combine launch failed: cudaError {err}")
     return y

@@ -22,8 +22,12 @@ tokens), at most ``ROUTING_MAX_CHUNK`` tokens (its logits tile lives in
 shared memory) and at most the row: the ViTs' rows (m = 196, S = 128)
 are one chunk and write no partials, the granite LM layer's (m = 2048,
 S = 32) 32 chunks of 64 tokens. The combine from saved stats (K2) takes
-chunks of ``FWD_TILES`` token blocks, one CUDA block per (chunk, row);
-its tokens need no partials. Neither depends on the batch, so a row's
+chunks of ``combine_chunk(block_tokens)`` tokens, ``FWD_TILES`` token
+blocks, one CUDA block per (chunk, row); its tokens need no partials.
+The CUDA sources hold the same caps: ``ROUTING_MAX_CHUNK`` is
+``kMaxChunk`` of csrc/soft_moe_routing.cu, and K2's chunk, at most
+``FWD_TILES * SOFT_MOE_TILE`` = 64 tokens, is bounded by ``kCT`` of
+csrc/soft_moe_combine.cu; each C entry point refuses a larger chunk. Neither depends on the batch, so a row's
 outputs do not either.
 
 The online combine (K3) keeps the d-chunk design: a TPU tile holds a
@@ -71,7 +75,7 @@ import torch
 SOFT_MOE_TILE = 32  # largest token / slot block of the CUDA kernels
 D_CHUNKS = (128, 256, 384, 768)  # d-chunk widths K3 is built for
 FWD_TILES = 2  # token blocks of a K2 chunk and of the smallest K1 chunk
-ROUTING_MAX_CHUNK = 256  # most tokens of a K1 chunk
+ROUTING_MAX_CHUNK = 256  # most tokens of a K1 chunk (kMaxChunk)
 HEALTH_TILES = 2  # token blocks one block of the routing-health kernel reduces
 BWD_TILES = 2  # token blocks of one chunk of the backward kernels K4, K5
 
@@ -117,6 +121,12 @@ def routing_chunk(m: int, s: int, bt: int) -> int:
     ``ROUTING_MAX_CHUNK`` tokens and at most the row."""
     want = max(FWD_TILES * bt, _round_up(2 * s, bt))
     return min(want, ROUTING_MAX_CHUNK // bt * bt, _round_up(m, bt))
+
+
+def combine_chunk(bt: int) -> int:
+    """Tokens of one chunk of the combine kernel (K2) for token blocks of
+    bt: ``FWD_TILES`` token blocks, whatever m and the batch."""
+    return FWD_TILES * bt
 
 
 def config_from_moe(moe_cfg, m: int, d: int) -> KernelConfig:

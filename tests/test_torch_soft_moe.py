@@ -39,7 +39,9 @@ from repro_torch.kernels.soft_moe_kernels import (
     routing_fwd_ref,
 )
 from repro_torch.kernels.tuning import (
+    SOFT_MOE_TILE,
     KernelConfig,
+    combine_chunk,
     config_from_moe,
     d_chunk,
     default_config,
@@ -317,6 +319,9 @@ def test_routing_chunk_policy():
     assert all(routing_chunk(m, s, bt) >= m for _, m, _, s, bt, _ in TILED[:3])
     assert all(-(-m // routing_chunk(m, s, bt)) > 2
                for _, m, _, s, bt, _ in TILED[3:])
+    # K2's chunk: FWD_TILES token blocks, at most the kernel's 64 (kCT)
+    assert combine_chunk(32) == 64 and combine_chunk(16) == 32
+    assert combine_chunk(SOFT_MOE_TILE) <= 64
 
 
 def test_tile_policy():
