@@ -10,28 +10,33 @@ prints no result line):
    power limit; turns TF32 off for matmuls and cuDNN.
 2. build: compiles every CUDA source of the port with nvcc (one process
    per source, started together) and prints the build time.
-3. kernels: holds each kernel against its plain PyTorch version on the
-   card (ragged tables, null-block entries, an inactive row, subdivided
-   pool blocks, GQA at two widths, a sliding window), checks that a
-   batched launch equals the batch-1 launches bitwise and that malformed
-   operands raise, and times the kernel, its plain version and one
-   PyTorch library call at the serving path's shapes.
+3. kernels: holds K7 (paged decode attention, split-KV) against its
+   plain PyTorch version on the card (ragged tables, null-block entries,
+   an inactive row, rows of 2048 keys down to 5: 16 splits of 128 keys,
+   one split and none; rows whose causal end falls on a split boundary,
+   at a split's last key and at the next one's first; subdivided pool
+   blocks, paged_block_kv = 8, GQA at two widths, a sliding window),
+   checks that a batched launch equals the batch-1 launches bitwise and
+   that malformed operands raise, and times the kernel (split pass and
+   merge), its plain version and one PyTorch library call at the serving
+   path's shapes, with one call's device time by launch, beside its bound
+   and its design's (the live bytes plus the partials written and read).
 4. soft-moe kernels: holds K1 (routing), K2 (combine from K1's stats)
    and K3 (online combine) against their plain PyTorch versions on the
    card at the Soft-MoE B/16 layer's shapes and at ragged ones (a token
    count that is not a multiple of the token block, the S/14-256E shape
    over several slot blocks and two of K2's 128-slot tiles, a single
-   row, f32 inputs, a d narrower than K3's d-chunk, L/16's d = 1024 over
-   two d-chunks, the granite LM layer's m = 2048, d = 1024, S = 32 over
-   32 of K1's token chunks), checks batched == batch-1 bitwise, that K2
-   on K1's stats agrees with K3 and K3's stats with K1's, and that
-   malformed operands raise; then times each kernel, its plain version,
+   row, f32 inputs, a ragged d = 264, L/16's d = 1024, the granite LM
+   layer's m = 2048, d = 1024, S = 32 over 32 of K1's token chunks),
+   checks batched == batch-1 bitwise, that K2 on K1's stats agrees with
+   K3 and K3's stats with K1's, and that malformed operands raise; then
+   times each kernel, its plain version,
    one ``scaled_dot_product_attention`` call that computes its main
    output (the library yardstick) and the port's unfused einsum path of
    the same function, and reads each one's peak device memory above its
-   inputs; K1 and K2 are also timed at the granite layer's shapes beside
-   the same SDPA call and einsum path, and at both layers beside the
-   bound of the work their tensor-core design runs, with one call's
+   inputs; K1, K2 and K3 are also timed at the granite layer's shapes
+   beside the same SDPA call and einsum path, and at both layers beside
+   the bound of the work their tensor-core design runs, with one call's
    device time by launch (pre-pass, main kernel, merge).
 5. soft-moe backward kernels: holds K4 (dispatch backward) and K5
    (combine backward) against their plain PyTorch versions on the card at
@@ -222,8 +227,8 @@ def kernel_label(line):
     """'name<bf16|f32, tile>' from ptxas's 'Compiling entry function'
     line (a mangled name: its nested identifiers, each prefixed by its
     length, then its template arguments: the element type and, for the
-    Soft-MoE kernels, K1's chunk rows in 32-token units, K3's d-chunk in
-    128-column units or the slot tile's 32-slot count (K2, K4, K5))."""
+    Soft-MoE kernels, K1's chunk rows in 32-token units or the slot tile's
+    32-slot count (K2, K3, K4, K5))."""
     import re
 
     mangled = line.split("'")[1] if "'" in line else line
@@ -241,13 +246,11 @@ def kernel_label(line):
     elif rest.startswith("If"):
         args.append("f32")
     nv = re.search(r"Li(\d+)E", rest)
-    if nv and (label.endswith("bwd_kernel")
-               or label == "combine_apply_kernel"):  # K2, K4, K5
+    if nv and (label.endswith("bwd_kernel") or label in (
+            "combine_apply_kernel", "combine_online_kernel")):  # K2-K5
         args.append(f"slot tile {32 * int(nv.group(1))}")
     elif nv and label == "routing_kernel":  # K1: the chunk's token rows
         args.append(f"chunk <= {32 * int(nv.group(1))} tokens")
-    elif nv and label == "combine_kernel":  # K3
-        args.append(f"d-chunk {128 * int(nv.group(1))}")
     return label + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -285,9 +288,10 @@ def make_paged_case(torch, seed, B, H, G, D, block_size, max_tokens, dtype,
             qpos.cuda())
 
 
-def paged_bound_ms(q, k, tables, qpos, block_size):
+def paged_bound_ms(q, k, tables, qpos, block_size, extra_bytes=0):
     """Least time on the card: bytes each input/output must move (live
-    keys only) over HBM bandwidth vs flops over the f32 rate."""
+    keys only; plus ``extra_bytes``) over HBM bandwidth vs flops over the
+    f32 rate."""
     B, H, D = q.shape
     G = k.shape[2]
     el = k.element_size()
@@ -297,11 +301,22 @@ def paged_bound_ms(q, k, tables, qpos, block_size):
     nbytes = (q.numel() * q.element_size()          # q
               + keys * (2 * G * D * el + 4)         # K, V, pos of live keys
               + blocks * 4 + B * 4                  # live table entries, q_pos
-              + B * H * D * q.element_size())       # output
+              + B * H * D * q.element_size()        # output
+              + extra_bytes)
     flops = keys * H * 4 * D                        # q.k and p.v per head
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+def paged_splits(tables, block_size, cfg=None):
+    """(split_tiles, n_split) of K7 for these tables: the split policy of
+    kernels/tuning.py."""
+    from repro_torch.kernels.tuning import paged_config, paged_split_tiles
+
+    bkv = paged_config(block_size, cfg).paged_block_kv
+    st = paged_split_tiles(bkv)
+    return st, -(-tables.shape[1] * (block_size // bkv) // st), bkv
 
 
 def time_ms(torch, fn, reps=30, flush=None):
@@ -339,33 +354,49 @@ def phase_kernels(torch):
     # bf16 both sides agree in f32 and then round to bf16, so they differ
     # by at most one bf16 step of the output, 2^-7 |ref|.
     tol = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-5, 2.0**-7)}
+    # 128-key splits at block 16: 16 splits for 2048 keys, one for 17 and
+    # 5, none for the inactive row 6
     lens8 = [2048, 1500, 1024, 700, 300, 17, -1, 5]
-    long_rows = [r for r, n in enumerate(lens8) if n >= 1024]
+    # causal ends on split boundaries: a split's last key (256, 128), the
+    # next split's first (129), a single key, one short of the table's
+    # 2048, three whole splits, one short of a split
+    edges = [256, 128, 129, 1, 2047, 384, -1, 127]
+    bkv8 = KernelConfig(paged_block_kv=8)
     cases = [
-        # (label, B, H, G, D, block_size, dtype, window, is_global, cfg)
-        ("slice bf16", 8, 14, 2, 64, 16, torch.bfloat16, None, True, None),
-        ("slice f32", 8, 14, 2, 64, 16, torch.float32, None, True, None),
+        # (label, B, H, G, D, block_size, dtype, window, is_global, cfg,
+        #  row lengths)
+        ("slice bf16", 8, 14, 2, 64, 16, torch.bfloat16, None, True, None,
+         lens8),
+        ("slice f32", 8, 14, 2, 64, 16, torch.float32, None, True, None,
+         lens8),
         ("slice f32 bkv=8", 8, 14, 2, 64, 16, torch.float32, None, True,
-         KernelConfig(paged_block_kv=8)),
+         bkv8, lens8),
+        ("split edges bf16", 8, 14, 2, 64, 16, torch.bfloat16, None, True,
+         None, edges),
+        ("split edges f32 bkv=8", 8, 14, 2, 64, 16, torch.float32, None,
+         True, bkv8, edges),
         ("block 192 f32", 8, 14, 2, 64, 192, torch.float32, None, True,
-         None),
+         None, lens8),
         ("H32 G8 D128 bf16", 8, 32, 8, 128, 16, torch.bfloat16, None, True,
-         None),
+         None, lens8),
         ("H32 G8 D128 f32", 8, 32, 8, 128, 16, torch.float32, None, True,
-         None),
+         None, lens8),
         ("window local bf16", 8, 14, 2, 64, 16, torch.bfloat16, 1024, False,
-         None),
+         None, lens8),
         ("window local f32", 8, 14, 2, 64, 16, torch.float32, 1024, False,
-         None),
+         None, lens8),
         ("window global f32", 8, 14, 2, 64, 16, torch.float32, 1024, True,
-         None),
+         None, lens8),
     ]
     main = {}
-    for i, (label, B, H, G, D, bs, dt, window, is_global, kcfg) in \
+    for i, (label, B, H, G, D, bs, dt, window, is_global, kcfg, lens) in \
             enumerate(cases):
         max_tokens = 2112 if bs == 192 else 2048
         args = make_paged_case(torch, i, B, H, G, D, bs, max_tokens, dt,
-                               lens8)
+                               lens)
+        long_rows = [r for r, n in enumerate(lens) if n >= 1024]
+        st, n_split, bkv = paged_splits(args[4], bs, kcfg)
+        live = [math.ceil(math.ceil(max(n, 0) / bkv) / st) for n in lens]
         kw = dict(window=window, is_global=is_global, cfg=kcfg)
         out = paged_decode_attend(*args, **kw)
         torch.cuda.synchronize()
@@ -387,6 +418,7 @@ def phase_kernels(torch):
         ok = within and finite and inactive_zero and bitwise
         log(f"[kernel] paged_decode_attend {label}: B={B} H={H} G={G} D={D} "
             f"block={bs} window={window} is_global={is_global} "
+            f"{n_split} splits of {st * bkv} keys, live per row {live} "
             f"max_abs_err={err:.3e} (tol {atol:.0e} + {rtol:.4g}|ref|: "
             f"{within}) rows of >=1024 tokens: max_abs_err={long_err:.3e}, "
             f"mean |out| {long_mag:.3e}; finite={finite} "
@@ -442,11 +474,21 @@ def phase_kernels(torch):
         torch, lambda: sdpa(qh, kg, vg, attn_mask=mask, enable_gqa=True),
         flush=flush)
     bound_ms, bound_by = paged_bound_ms(q, k, tables, qpos, bs)
+    # the split-KV design also writes and reads its partials
+    _, n_split, _ = paged_splits(tables, bs)
+    part_bytes = B * n_split * H * (D + 2) * 4
+    design_ms, design_by = paged_bound_ms(q, k, tables, qpos, bs,
+                                          2 * part_bytes)
     log(f"[kernel] paged_decode_attend timing (B=8 H=14 G=2 D=64 block 16, "
         f"bf16, L2 flushed): kernel_ms={kernel_ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms(sdpa with enable_gqa over the "
         f"gathered view)={library_ms:.4f} bound={bound_ms * 1e3:.3f} us "
-        f"({bound_by})")
+        f"({bound_by}); design bound={design_ms * 1e3:.3f} us "
+        f"({design_by}: with {n_split} splits' partials, "
+        f"{part_bytes / 1e6:.3f} MB, written and read)")
+    launch_times(torch, lambda: paged_decode_attend(*main["args"]),
+                 "B=8 H=14 G=2 D=64 block 16 bf16", "paged_decode_attend",
+                 tag="kernel")
     return {"paged_decode_attend": {
         "max_abs_err": main["err"], "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
@@ -497,16 +539,17 @@ def soft_moe_bounds(x, s, kind):
 
 
 def soft_moe_fwd_design_bound(x, s, kind):
-    """Least time on the card for the work the tensor-core design of K1
-    and K2 runs (csrc/soft_moe_routing.cu, csrc/soft_moe_combine.cu): its
-    two products of 2 m S d flops a row (the logits and the mix), as passes
-    on the tensor cores at the dense TF32 peak (bf16 x: two passes each,
-    the f32 operand split; f32 x: three), against the bytes of
+    """Least time on the card for the work the tensor-core design of K1,
+    K2 and K3 runs (csrc/soft_moe_routing.cu, csrc/soft_moe_combine.cu):
+    its two products of 2 m S d flops a row (the logits and the mix), as
+    passes on the tensor cores at the dense TF32 peak (bf16 x: two passes
+    each, the f32 operand split; f32 x: three), against the bytes of
     soft_moe_bounds plus, for K1 at the default tiling, the partials
     written once and read once: the chunks' slots (b, n_chunks, S, d) f32
     and their (max, denom) where a row has several token chunks, and the
     slot blocks' combine (max, denom) (b, n_slot_blocks, m) where it has
-    several slot blocks."""
+    several slot blocks. K2 and K3 write none at S <= 128 (the shapes
+    timed here)."""
     from repro_torch.kernels.tuning import default_config, routing_chunk
 
     b, m, d = x.shape
@@ -604,7 +647,7 @@ def phase_soft_moe_kernels(torch):
     )
     from repro_torch.kernels.tuning import (
         KernelConfig,
-        d_chunk,
+        combine_chunk,
         default_config,
         routing_chunk,
     )
@@ -616,20 +659,20 @@ def phase_soft_moe_kernels(torch):
     stat_tol = (1e-5, 1e-5)
     cases = [
         # (label, b, m, d, S, dtype, cfg); m = 196 is not a multiple of
-        # the 32-token block
+        # the 32-token block; S = 256 is two of K2's and K3's 128-slot
+        # tiles (K3 rescales between them)
         ("B/16 layer bf16", 64, 196, 768, 128, torch.bfloat16, None),
         ("B/16 layer f32", 64, 196, 768, 128, torch.float32, None),
         ("S/14-256E bf16", 8, 256, 384, 256, torch.bfloat16, None),
         ("S/14-256E f32 bt16 bs8", 8, 256, 384, 256, torch.float32,
          KernelConfig(block_tokens=16, block_slots=8)),
         ("single row bf16", 1, 196, 768, 128, torch.bfloat16, None),
-        # 264 of a 384-column chunk's columns lie inside d
+        # d = 264: the last 64-column tile of the mix is ragged
         ("ragged m45 d264 S40 f32", 3, 45, 264, 40, torch.float32, None),
-        # L/16's width: two of K3's 768-column chunks, each recomputing
-        # the logits
+        # L/16's width: the logits once over all of d = 1024
         ("L/16 layer d1024 bf16", 8, 196, 1024, 128, torch.bfloat16, None),
         # granite-moe-1b-a400m+soft's layer at seq 2048: 32 of K1's
-        # 64-token chunks, one slot block; two of K3's d-chunks
+        # 64-token chunks, one slot block
         ("granite layer bf16", 8, 2048, 1024, 32, torch.bfloat16, None),
     ]
     main, granite = {}, None
@@ -681,8 +724,9 @@ def phase_soft_moe_kernels(torch):
         ct = routing_chunk(m, s, cfg.block_tokens)
         log(f"[softmoe] {label}: b={b} m={m} d={d} S={s} "
             f"{str(dt).replace('torch.', '')} K1 chunks={-(-m // ct)} of "
-            f"{ct} tokens, slot blocks={-(-s // cfg.block_slots)}; K3 "
-            f"d_chunk={d_chunk(d)} "
+            f"{ct} tokens, slot blocks={-(-s // cfg.block_slots)}; K2/K3 "
+            f"chunks of {combine_chunk(cfg.block_tokens)} tokens, "
+            f"{-(-s // 128)} slot tile(s) "
             + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
             + f" (tol outputs {atol:.0e} + {rtol:.4g}|ref|, stats "
             f"{stat_tol[0]:.0e} + {stat_tol[1]:.0e}|ref|: {all(oks)}); "
@@ -782,13 +826,11 @@ def phase_soft_moe_kernels(torch):
         mem = {k: peak_above(f) / 2**20 for k, f in (
             ("kernel", kern), ("sdpa", lib_call), ("einsum", einsum[kind]))}
         bound_ms, bound_by, nbytes, flops = soft_moe_bounds(x, s, kind)
-        design = ""
-        if name != "combine_online":  # K3 keeps its d-chunk design
-            design_ms, design_by, d_bytes, d_ops = soft_moe_fwd_design_bound(
-                x, s, kind)
-            design = (f"; design bound={design_ms * 1e3:.2f} us ({design_by}"
-                      f": {d_bytes / 1e6:.1f} MB with the partials, "
-                      f"{d_ops * 1e6:.2f} us of tensor-core passes)")
+        design_ms, design_by, d_bytes, d_ops = soft_moe_fwd_design_bound(
+            x, s, kind)
+        design = (f"; design bound={design_ms * 1e3:.2f} us ({design_by}"
+                  f": {d_bytes / 1e6:.1f} MB with the partials, "
+                  f"{d_ops * 1e6:.2f} us of tensor-core passes)")
         log(f"[softmoe] {name} timing (b=64 m=196 d=768 S=128 bf16, L2 "
             f"flushed): kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms:.4f} (scaled_dot_product_attention, "
@@ -807,15 +849,17 @@ def phase_soft_moe_kernels(torch):
 
     # K1 and K2 at the granite layer's shapes, as the LM training phase
     # runs them (b=8, m=2048, d=1024, S=32, bf16): 32 token chunks a row
-    # for both; beside the same yardsticks as at B/16
+    # for each; K3 beside them; the same yardsticks as at B/16
     gx, gphi, gys, gstats = granite
     shape = "b=8 m=2048 d=1024 S=32 bf16"
     library, einsum = softmoe_yardsticks(torch, gx, gphi, gys, flush, shape)
     for name, kern, kind in (
             ("routing_fwd", lambda: routing_fwd(gx, gphi), "routing"),
             ("combine_apply", lambda: combine_apply(gx, gphi, gys, gstats),
+             "combine"),
+            ("combine_online", lambda: combine_online(gx, gphi, gys),
              "combine")):
-        want = kern()[0] if name == "routing_fwd" else kern()
+        want = kern() if name == "combine_apply" else kern()[0]
         label, (library_ms, lib_call) = min(library[kind][1].items(),
                                             key=lambda r: r[1][0])
         lib_err = (lib_call()[:, 0].float() - want.float()).abs().max().item()
@@ -1551,7 +1595,7 @@ def kernel_kind(name):
     low = name.lower()
     if "health_kernel" in name or "health_merge_kernel" in name:
         return "K6 routing health"
-    if "paged_decode_kernel" in name:
+    if "paged_decode_kernel" in name or "paged_merge_kernel" in name:
         return "K7 paged decode attention"
     if "dispatch_bwd" in name:
         return "K4 dispatch backward"
@@ -1562,10 +1606,10 @@ def kernel_kind(name):
         return "K4/K5 pre-pass and partial sums"
     if "routing_kernel" in name or "routing_merge_kernel" in name:
         return "K1 routing"
+    if "combine_online_kernel" in name:
+        return "K3 online combine"
     if "combine_apply_kernel" in name:
         return "K2 combine"
-    if "combine_kernel" in name:
-        return "K3 online combine"
     if "inv_norm_kernel" in name:
         return "K1/K2/K3/K6 norm pre-pass"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "gemv", "nvjet")):

@@ -9,8 +9,9 @@ header says what bounds it and how it is laid out.
 ``paged_decode_attend`` launches the kernel for CUDA tensors and runs
 ``paged_decode_attend_ref`` for CPU tensors. There is no fallback: a
 CUDA call whose kernel does not build or launch raises.
-``paged_decode_attend.launches`` counts kernel launches (never plain
-runs), so a caller can show that a run went through the kernel.
+``paged_decode_attend.launches`` counts calls that launched the kernel
+(its split pass and its merge: one a call; never plain runs), so a
+caller can show that a run went through the kernel.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from .tuning import KernelConfig, paged_config
+from .tuning import KernelConfig, paged_config, paged_split_tiles
 
 _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -51,10 +52,14 @@ def paged_decode_attend_ref(q, k_pool, v_pool, pos_pool, tables, q_pos, *,
                             is_global: bool = True,
                             scale: Optional[float] = None,
                             cfg: Optional[KernelConfig] = None):
-    """Plain PyTorch version of the kernel, with the kernel's arithmetic:
-    tiles of ``paged_block_kv`` keys read through the tables in logical
-    order and folded into an f32 online softmax (max, denom, acc); masked
-    keys weigh exactly 0; rows without a valid key return zeros."""
+    """Plain PyTorch version of the kernel, with the kernel's arithmetic
+    in f32: each row's tiles of ``paged_block_kv`` keys, read through the
+    tables, are cut into splits of ``paged_split_tiles`` tiles; a split
+    folds into a partial per query head (m = max(-1e30, its valid
+    scores), den = sum exp(s - m), acc = sum exp(s - m) V; masked keys
+    weigh exactly 0), and the partials merge in split order with the
+    online update. Rows without a valid key return zeros through the safe
+    divide acc / max(den, 1e-30)."""
     b, h, dk, block_size, groups, dv, nb = _shapes(
         q, k_pool, v_pool, pos_pool, tables, q_pos)
     rep = h // groups
@@ -62,19 +67,26 @@ def paged_decode_attend_ref(q, k_pool, v_pool, pos_pool, tables, q_pos, *,
     cfg = paged_config(block_size, cfg)
     bkv = cfg.paged_block_kv
     sub = block_size // bkv
+    split = paged_split_tiles(bkv)
     dt = cfg.acc()
+    dev = q.device
     qg = q.to(dt).reshape(b, groups, rep, dk)
     qp = q_pos.long()[:, None]
     tables = tables.long()
-    acc = torch.zeros(b, groups, rep, dv, dtype=dt, device=q.device)
-    mx = torch.full((b, groups, rep), _NEG, dtype=dt, device=q.device)
-    den = torch.zeros(b, groups, rep, dtype=dt, device=q.device)
-    for jt in range(nb * sub):
-        blk = tables[:, jt // sub]
-        rows = slice((jt % sub) * bkv, (jt % sub + 1) * bkv)
-        k = k_pool[blk, rows].to(dt)         # (B, bkv, G, Dk)
-        v = v_pool[blk, rows].to(dt)         # (B, bkv, G, Dv)
-        kp = pos_pool[blk, rows].long()      # (B, bkv)
+    kf, vf = (t.reshape(-1, groups, t.shape[-1]) for t in (k_pool, v_pool))
+    posf = pos_pool.reshape(-1)
+    offs = torch.arange(bkv, device=dev)
+    acc = torch.zeros(b, groups, rep, dv, dtype=dt, device=dev)
+    mx = torch.full((b, groups, rep), _NEG, dtype=dt, device=dev)
+    den = torch.zeros(b, groups, rep, dtype=dt, device=dev)
+    for t0 in range(0, nb * sub, split):  # a CUDA block per (group, split)
+        tiles = torch.arange(t0, min(t0 + split, nb * sub), device=dev)
+        # pool row of every key of the split, in logical order: (B, keys)
+        idx = (tables[:, tiles // sub] * block_size
+               + ((tiles % sub) * bkv)[None, :])[..., None] + offs
+        idx = idx.reshape(b, -1)
+        k, v = kf[idx].to(dt), vf[idx].to(dt)  # (B, keys, G, D)
+        kp = posf[idx].long()
         s = scale * torch.einsum("bgrd,btgd->bgrt", qg, k)
         ok = kp >= 0
         if causal:
@@ -82,14 +94,18 @@ def paged_decode_attend_ref(q, k_pool, v_pool, pos_pool, tables, q_pos, *,
         if window is not None:
             ok = ok & ((kp > qp - window) | bool(is_global))
         ok = ok[:, None, None, :]
-        s = torch.where(ok, s, torch.full_like(s, _NEG))
-        m_new = torch.maximum(mx, s.amax(-1))
-        corr = torch.exp(mx - m_new)
-        p = torch.where(ok, torch.exp(s - m_new[..., None]),
+        s = torch.where(ok, s, torch.full_like(s, -torch.inf))
+        m_j = torch.clamp(s.amax(-1), min=_NEG)
+        p = torch.where(ok, torch.exp(s - m_j[..., None]),
                         torch.zeros_like(s))
-        den = den * corr + p.sum(-1)
+        den_j = p.sum(-1)
+        acc_j = torch.einsum("bgrt,btgd->bgrd", p, v)
+        # the merge pass: the split's partial joins the row's in order
+        m_new = torch.maximum(mx, m_j)
+        c_old, c_j = torch.exp(mx - m_new), torch.exp(m_j - m_new)
+        den = den * c_old + den_j * c_j
+        acc = acc * c_old[..., None] + acc_j * c_j[..., None]
         mx = m_new
-        acc = acc * corr[..., None] + torch.einsum("bgrt,btgd->bgrd", p, v)
     out = acc / torch.clamp(den, min=1e-30)[..., None]
     return out.reshape(b, h, dv).to(q.dtype)
 
@@ -128,7 +144,7 @@ def _launcher():
     fn = load("paged_decode_attention").paged_decode_attend_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p] + [i] * 14 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 8 + [i] * 15 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -158,18 +174,23 @@ def paged_decode_attend(q, k_pool, v_pool, pos_pool, tables, q_pos, *,
         q, k_pool, v_pool, pos_pool, tables, q_pos)
     _check_cuda_operands(q, k_pool, v_pool, pos_pool, tables, q_pos)
     bkv = paged_config(block_size, cfg).paged_block_kv
+    split = paged_split_tiles(bkv)
+    n_split = -(-nb * (block_size // bkv) // split)
     scale = scale if scale is not None else 1.0 / float(dk) ** 0.5
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
+    # each split's partial per head: acc (Dv), then max and denom
+    part = torch.empty((b, n_split, h, dv + 2), dtype=torch.float32,
+                       device=q.device)
     fn = _launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  pos_pool.data_ptr(), tables.data_ptr(), q_pos.data_ptr(),
-                 out.data_ptr(), _DTYPE_CODE[q.dtype],
+                 part.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype],
                  _DTYPE_CODE[k_pool.dtype], b, h, groups, dk, dv,
-                 block_size, nb, bkv, int(causal), int(window is not None),
-                 int(window or 0), int(bool(is_global)), float(scale),
-                 stream)
+                 block_size, nb, bkv, split, int(causal),
+                 int(window is not None), int(window or 0),
+                 int(bool(is_global)), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: "
                            f"cudaError {err}")

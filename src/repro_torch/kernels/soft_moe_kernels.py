@@ -8,9 +8,9 @@ wrappers and their plain versions, counterpart of
   stats (b, m).
 - K2 ``combine_apply`` (``csrc/soft_moe_combine.cu``; replaces
   ``combine_apply_pallas``): ``Y = C Ys`` with C from K1's saved stats.
-- K3 ``combine_online`` (same source; replaces ``combine_online_pallas``):
-  the combine with an online softmax over slots, which also returns
-  (c_mx, c_den).
+- K3 ``combine_online`` (same source and body; replaces
+  ``combine_online_pallas``): the combine with an online softmax over
+  128-slot tiles, which also returns (c_mx, c_den).
 - K4 ``dispatch_bwd`` (``csrc/soft_moe_dispatch_bwd.cu``; replaces
   ``dispatch_bwd_pallas``): dX and dPhi_n from the slots' gradient, with
   the dispatch weights recomputed from K1's saved stats.
@@ -42,7 +42,9 @@ one output that sums over rows, is the sum of the rows' own partials in
 row order, as the CUDA kernels form it. K1 takes each chunk's dispatch
 softmax on its own (chunks of ``tuning.routing_chunk`` tokens) and
 merges the chunks in chunk order, and the slot blocks' combine partials
-in slot-block order, as its kernel does. K6 splits each row's tokens
+in slot-block order, as its kernel does. K3 carries its online
+(max, denom) over the kernel's 128-slot tiles, not over ``block_slots``.
+K6 splits each row's tokens
 into chunks of ``HEALTH_TILES`` token blocks and sums the chunks'
 partials in chunk order, as its kernel does; K4 and K5 do the same for
 dPhi_n and dYs with chunks of ``BWD_TILES`` token blocks, and a row's
@@ -61,14 +63,13 @@ from .tuning import (
     SOFT_MOE_TILE,
     KernelConfig,
     combine_chunk,
-    d_chunk,
     default_config,
     routing_chunk,
 )
 
 _NEG = -1e30
 _EPS = 1e-6  # must match ref.l2_normalize
-_SLOT_TILE = 128  # slots one CUDA block of K2, K4 or K5 holds at a time
+_SLOT_TILE = 128  # slots one CUDA block of K2-K5 holds at a time
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -163,7 +164,9 @@ def routing_fwd_ref(x, phi_n, cfg: Optional[KernelConfig] = None):
 
 def _combine_row(xf, phi, ysf, bt, bs, c_mx=None, c_den=None):
     """K2's (stats given: C normalised before the product) or K3's
-    (online) recurrence for one row."""
+    (online: per slot tile of bs, the running max, rescale and denominator
+    of csrc/soft_moe_combine.cu, y / den at the end) recurrence for one
+    row, in token blocks of bt."""
     m = xf.shape[0]
     rn = _inv_norm(xf)
     ys, mxs, dens = [], [], []
@@ -209,12 +212,16 @@ def combine_apply_ref(x, phi_n, ys, c_stats,
 
 
 def combine_online_ref(x, phi_n, ys, cfg: Optional[KernelConfig] = None):
-    """Plain version of K3: ``(y (b, m, d), (c_mx, c_den) (b, m))``."""
+    """Plain version of K3: ``(y (b, m, d), (c_mx, c_den) (b, m))``, the
+    kernel's chunks of ``combine_chunk(block_tokens)`` tokens and its
+    online softmax over 128-slot tiles (one tile, no rescale, for S <=
+    128)."""
     b, m, d, s = _shapes(x, phi_n, ys)
     cfg = _resolve(cfg, m, d, s)
     phi = phi_n.float()
-    rows = [_combine_row(x[i].float(), phi, ys[i].float(), cfg.block_tokens,
-                         cfg.block_slots) for i in range(b)]
+    ct = combine_chunk(cfg.block_tokens)
+    rows = [_combine_row(x[i].float(), phi, ys[i].float(), ct, _SLOT_TILE)
+            for i in range(b)]
     y, cmx, cden = (torch.stack(t) for t in zip(*rows))
     return y.to(x.dtype), (cmx, cden)
 
@@ -578,14 +585,21 @@ def routing_fwd(x, phi_n, cfg: Optional[KernelConfig] = None):
 routing_fwd.launches = 0
 
 
-def _combine_apply_cuda(x, phi_n, ys, c_stats, cfg):
+def _combine_cuda(x, phi_n, ys, c_stats, cfg):
+    """K2 (``c_stats`` given) or K3 (``c_stats`` None: the kernel writes
+    them and the call returns ``(y, c_stats)``); one body, one signature."""
     b, m, d = x.shape
     s = phi_n.shape[1]
     f32 = dict(dtype=torch.float32, device=x.device)
+    online = c_stats is None
+    if online:
+        c_stats = (torch.empty((b, m), **f32), torch.empty((b, m), **f32))
     y = torch.empty_like(x)
     rn = torch.empty((b, m), **f32)
     y_acc = torch.empty((b, m, d), **f32) if s > _SLOT_TILE else None
-    fn = _launcher("soft_moe_combine", "soft_moe_combine_apply_launch", 8, 6)
+    entry = ("soft_moe_combine_online_launch" if online
+             else "soft_moe_combine_apply_launch")
+    fn = _launcher("soft_moe_combine", entry, 8, 6)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), phi_n.data_ptr(), ys.data_ptr(),
                  c_stats[0].data_ptr(), c_stats[1].data_ptr(), y.data_ptr(),
@@ -594,27 +608,7 @@ def _combine_apply_cuda(x, phi_n, ys, c_stats, cfg):
                  combine_chunk(cfg.block_tokens), _stream(x.device))
     if err != 0:
         raise RuntimeError(f"soft_moe_combine launch failed: cudaError {err}")
-    return y
-
-
-def _combine_online_cuda(x, phi_n, ys, cfg):
-    b, m, d = x.shape
-    s = phi_n.shape[1]
-    f32 = dict(dtype=torch.float32, device=x.device)
-    c_mx, c_den = torch.empty((b, m), **f32), torch.empty((b, m), **f32)
-    y = torch.empty_like(x)
-    rn = torch.empty((b, m), **f32)
-    fn = _launcher("soft_moe_combine", "soft_moe_combine_online_launch", 7,
-                   8)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), phi_n.data_ptr(), ys.data_ptr(),
-                 c_mx.data_ptr(), c_den.data_ptr(), y.data_ptr(),
-                 rn.data_ptr(), _DTYPE_CODE[x.dtype], b, m, d, s,
-                 cfg.block_tokens, cfg.block_slots, d_chunk(d),
-                 _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"soft_moe_combine launch failed: cudaError {err}")
-    return y, (c_mx, c_den)
+    return (y, c_stats) if online else y
 
 
 def combine_apply(x, phi_n, ys, c_stats, cfg: Optional[KernelConfig] = None):
@@ -630,7 +624,7 @@ def combine_apply(x, phi_n, ys, c_stats, cfg: Optional[KernelConfig] = None):
         return combine_apply_ref(x, phi_n, ys, c_stats, cfg)
     _refuse_grad(x, phi_n, ys, *c_stats)
     _check_cuda(cfg, x, phi_n, {"ys": ys}, tuple(c_stats))
-    y = _combine_apply_cuda(x, phi_n, ys, tuple(c_stats), cfg)
+    y = _combine_cuda(x, phi_n, ys, tuple(c_stats), cfg)
     combine_apply.launches += 1
     return y
 
@@ -640,15 +634,15 @@ combine_apply.launches = 0
 
 def combine_online(x, phi_n, ys, cfg: Optional[KernelConfig] = None):
     """K3: ``(y (b, m, d), (c_mx, c_den) (b, m))`` with an online softmax
-    over slots. CPU tensors run ``combine_online_ref``; CUDA tensors
-    launch the kernel or raise."""
+    over 128-slot tiles. CPU tensors run ``combine_online_ref``; CUDA
+    tensors launch the kernel or raise."""
     b, m, d, s = _shapes(x, phi_n, ys)
     cfg = _resolve(cfg, m, d, s)
     if x.device.type == "cpu":
         return combine_online_ref(x, phi_n, ys, cfg)
     _refuse_grad(x, phi_n, ys)
     _check_cuda(cfg, x, phi_n, {"ys": ys})
-    out = _combine_online_cuda(x, phi_n, ys, cfg)
+    out = _combine_cuda(x, phi_n, ys, None, cfg)
     combine_online.launches += 1
     return out
 

@@ -21,34 +21,29 @@ partials, S d f32 written and read, then cost at most twice its bf16
 tokens), at most ``ROUTING_MAX_CHUNK`` tokens (its logits tile lives in
 shared memory) and at most the row: the ViTs' rows (m = 196, S = 128)
 are one chunk and write no partials, the granite LM layer's (m = 2048,
-S = 32) 32 chunks of 64 tokens. The combine from saved stats (K2) takes
-chunks of ``combine_chunk(block_tokens)`` tokens, ``FWD_TILES`` token
-blocks, one CUDA block per (chunk, row); its tokens need no partials.
-The CUDA sources hold the same caps: ``ROUTING_MAX_CHUNK`` is
-``kMaxChunk`` of csrc/soft_moe_routing.cu, and K2's chunk, at most
-``FWD_TILES * SOFT_MOE_TILE`` = 64 tokens, is bounded by ``kCT`` of
-csrc/soft_moe_combine.cu; each C entry point refuses a larger chunk. Neither depends on the batch, so a row's
+S = 32) 32 chunks of 64 tokens. Both combines, from saved stats (K2) and
+online (K3), run one body: chunks of ``combine_chunk(block_tokens)``
+tokens, ``FWD_TILES`` token blocks, one CUDA block per (chunk, row),
+which forms its logits once over the whole of d and needs no partials;
+K3 carries its online (max, denom) over the body's 128-slot tiles, not
+over ``block_slots``. The CUDA sources hold the same caps:
+``ROUTING_MAX_CHUNK`` is ``kMaxChunk`` of csrc/soft_moe_routing.cu, and
+the combine chunk, at most ``FWD_TILES * SOFT_MOE_TILE`` = 64 tokens, is
+bounded by ``kCT`` of csrc/soft_moe_combine.cu; each C entry point
+refuses a larger chunk. Neither depends on the batch, so a row's
 outputs do not either.
 
-The online combine (K3) keeps the d-chunk design: a TPU tile holds a
-whole row of d, but at d = 768 a (128 x 768) f32 accumulator is 393 KB
-against the 227 KB of shared memory a block may use, so each CUDA block
-accumulates one chunk of d for a 32-token block, in registers, and
-recomputes the logits tile once per chunk: a factor ceil(d / chunk) on
-the logits arithmetic. It is built for chunks of 128, 256, 384 and 768
-columns (``D_CHUNKS``); ``d_chunk(d)`` takes the narrowest one that
-covers d, so up to d = 768 there is one chunk and no recompute, and
-wider rows (L/16's 1024, H/14's 1280) use 768-column chunks.
-
-``paged_block_kv`` is the number of KV rows one online-softmax update of
-the paged decode kernel folds in. Pool blocks of up to 128 rows (the
-serving default is 16) are one tile; larger blocks are cut into the
-largest divisor <= 128, the same policy as the TPU kernel, so both
-kernels fold keys in the same groups. On Hopper the kernel stages
-several such tiles in shared memory at once (up to 128 keys) and keeps
-the per-tile update order, so the staging width does not change the
-arithmetic. There is no interpret mode: a CPU tensor runs the plain
-PyTorch version of each kernel.
+``paged_block_kv`` is the number of KV rows of one tile of the paged
+decode kernel (K7). Pool blocks of up to 128 rows (the serving default
+is 16) are one tile; larger blocks are cut into the largest divisor <=
+128, the same policy as the TPU kernel. On Hopper the kernel splits each
+row's keys (split-KV): a split is ``paged_split_tiles(paged_block_kv)``
+whole tiles, as many as fit in ``PAGED_SPLIT_KEYS`` (128 keys at the
+serving block of 16), one CUDA block per (KV group, split, row), and a
+second pass merges a row's split partials in split order. The split
+depends on the pool's tiling alone, never on the batch or on the other
+rows' lengths, so neither does a row's output. There is no interpret
+mode: a CPU tensor runs the plain PyTorch version of each kernel.
 
 The routing-health kernel (K6) reduces a row's tokens in chunks of
 ``HEALTH_TILES`` token blocks, one CUDA block per (chunk, slot block,
@@ -60,8 +55,7 @@ chunks of ``BWD_TILES`` token blocks (64 tokens at the default 32-token
 block), one CUDA block per (chunk, row): it builds its chunk's weights
 for every slot once and writes dX and the chunk's dPhi_n (and dYs)
 partials, which a second pass sums in chunk order, then over rows in
-row order. They take no d-chunk: ``D_CHUNKS`` and ``d_chunk()`` are
-K3's.
+row order.
 """
 from __future__ import annotations
 
@@ -73,11 +67,11 @@ import torch
 
 
 SOFT_MOE_TILE = 32  # largest token / slot block of the CUDA kernels
-D_CHUNKS = (128, 256, 384, 768)  # d-chunk widths K3 is built for
-FWD_TILES = 2  # token blocks of a K2 chunk and of the smallest K1 chunk
+FWD_TILES = 2  # token blocks of a K2/K3 chunk and of the smallest K1 chunk
 ROUTING_MAX_CHUNK = 256  # most tokens of a K1 chunk (kMaxChunk)
 HEALTH_TILES = 2  # token blocks one block of the routing-health kernel reduces
 BWD_TILES = 2  # token blocks of one chunk of the backward kernels K4, K5
+PAGED_SPLIT_KEYS = 128  # most keys of one split of K7 (a whole tile more)
 
 
 @dataclass(frozen=True)
@@ -108,12 +102,6 @@ def default_config(m: int, d: int, s: int,
     return cfg.replace(block_tokens=bt, block_slots=bs)
 
 
-def d_chunk(d: int) -> int:
-    """Columns of d one block of the online combine (K3) accumulates: the
-    narrowest built width that covers d, or the widest where none does."""
-    return next((w for w in D_CHUNKS if w >= d), D_CHUNKS[-1])
-
-
 def routing_chunk(m: int, s: int, bt: int) -> int:
     """Tokens of one chunk of the routing kernel (K1) for m tokens, S
     slots and token blocks of bt: whole token blocks, at least
@@ -124,8 +112,9 @@ def routing_chunk(m: int, s: int, bt: int) -> int:
 
 
 def combine_chunk(bt: int) -> int:
-    """Tokens of one chunk of the combine kernel (K2) for token blocks of
-    bt: ``FWD_TILES`` token blocks, whatever m and the batch."""
+    """Tokens of one chunk of the combine kernels (K2, K3) for token
+    blocks of bt: ``FWD_TILES`` token blocks, whatever m, d and the
+    batch."""
     return FWD_TILES * bt
 
 
@@ -161,3 +150,10 @@ def paged_config(block_size: int,
             f"paged_block_kv {bkv} must divide pool block_size {block_size}"
         )
     return cfg.replace(paged_block_kv=bkv)
+
+
+def paged_split_tiles(paged_block_kv: int) -> int:
+    """Tiles of ``paged_block_kv`` keys one split of the paged decode
+    kernel (K7) covers: as many as fit in ``PAGED_SPLIT_KEYS``, at least
+    one. A function of the pool's tiling alone."""
+    return max(1, PAGED_SPLIT_KEYS // paged_block_kv)

@@ -2,8 +2,10 @@
 version (what the wrapper runs on CPU tensors) against the JAX Pallas
 kernel in interpret mode and against the JAX gather oracle, across GQA
 widths, sliding windows, ragged tables with null blocks, inactive rows
-and subdivided pool blocks (f32, atol 1e-5); the tile policy; row
-independence; and, on a GPU, the CUDA kernel and its no-fallback rule.
+and subdivided pool blocks, and over several of the kernel's 128-key
+splits with causal ends on split boundaries (f32, atol 1e-5); the tile
+and split policies; row independence; and, on a GPU, the CUDA kernel and
+its no-fallback rule.
 
 The JAX reference is imported by the ``jx`` fixture, so that the file
 also collects on a GPU machine without jax, where the ``cuda``-marked
@@ -18,7 +20,11 @@ from repro_torch.kernels.paged_attention import (
     paged_decode_attend,
     paged_decode_attend_ref,
 )
-from repro_torch.kernels.tuning import KernelConfig, paged_config
+from repro_torch.kernels.tuning import (
+    KernelConfig,
+    paged_config,
+    paged_split_tiles,
+)
 
 ATOL = 1e-5
 
@@ -111,6 +117,48 @@ def test_plain_matches_jax_kernel_and_gather(jx, groups, heads, window,
     assert np.isfinite(out).all() and (out[~active] == 0).all()
 
 
+# (window, is_global) over rows of the split-KV kernel's 128-key splits
+# (block 64: one tile a block, two tiles a split): four splits with a
+# ragged last one (450), causal ends on a split's last key (256) and on
+# the next split's first (257), a row shorter than one split (40), an
+# inactive row
+SPLIT_ROWS = [450, 256, 257, 40, -1]
+
+
+@pytest.mark.parametrize("window,is_global", [(None, True), (100, False),
+                                              (100, True)])
+def test_plain_splits_match_jax_kernel_and_gather(jx, window, is_global):
+    assert paged_split_tiles(paged_config(64).paged_block_kv) == 2
+    arrs = _case(9, 2, 4, 64, SPLIT_ROWS, 8, hole=window is None)
+    kw = dict(causal=True, window=window, is_global=is_global)
+    out = _port(arrs, **kw)
+    ref_kernel = np.asarray(jx.paged_decode_attend(
+        *(jx.jnp.asarray(a) for a in arrs),
+        cfg=jx.KernelConfig(interpret=True), **kw))
+    np.testing.assert_allclose(out, ref_kernel, rtol=0, atol=ATOL)
+    active = arrs[-1] >= 0
+    ref_gather = _jax_gather(jx, arrs, window, is_global)
+    np.testing.assert_allclose(out[active], ref_gather[active], rtol=0,
+                               atol=ATOL)
+    assert np.isfinite(out).all() and (out[~active] == 0).all()
+
+
+def test_split_policy_depends_only_on_the_pool_tiling():
+    """A split is whole tiles of paged_block_kv keys, up to 128 keys (at
+    least one tile), from the pool's tiling alone; so a row's output is
+    bitwise the same whatever the batch and the other rows' lengths."""
+    assert ([paged_split_tiles(b) for b in (16, 8, 6, 64, 96, 128, 256)]
+            == [8, 16, 21, 2, 1, 1, 1])
+    arrs = [torch.from_numpy(a)
+            for a in _case(5, 2, 4, 16, [300, 40, 129, -1, 7], 24)]
+    q, k, v, pos, tables, qpos = arrs
+    full = paged_decode_attend_ref(*arrs)
+    for rows in ([0], [1], [2, 0], [4, 1, 3], [3]):
+        sub = paged_decode_attend_ref(q[rows], k, v, pos, tables[rows],
+                                      qpos[rows])
+        assert torch.equal(sub, full[rows]), rows
+
+
 @pytest.mark.parametrize("block_size", [16, 256, 192, 250])
 def test_paged_config_matches_jax(jx, block_size):
     assert (paged_config(block_size).paged_block_kv
@@ -171,6 +219,32 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, rtol):
     ref = paged_decode_attend_ref(*arrs)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-5,
                                rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 0.0),
+                                        (torch.bfloat16, 2.0**-7)])
+@pytest.mark.parametrize("bkv", [0, 8])
+def test_cuda_split_edges_match_plain_version(cuda, dtype, rtol, bkv):
+    """Causal ends on 128-key split boundaries (a split's last key, the
+    next one's first), one short of the table, a single key, an inactive
+    row; batched == batch-1 bitwise."""
+    arrs = _case(4, 2, 14, 16, [256, 128, 129, 1, 2047, -1, 127], 128,
+                 d=64)
+    arrs = [torch.from_numpy(a).cuda().to(dtype) if i < 3
+            else torch.from_numpy(a).cuda() for i, a in enumerate(arrs)]
+    cfg = KernelConfig(paged_block_kv=bkv)
+    out = paged_decode_attend(*arrs, cfg=cfg)
+    torch.cuda.synchronize()
+    ref = paged_decode_attend_ref(*arrs, cfg=cfg)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-5,
+                               rtol=rtol)
+    assert (out[5] == 0).all()
+    q, k, v, pos, tables, qpos = arrs
+    for r in range(q.shape[0]):
+        one = paged_decode_attend(q[r:r + 1], k, v, pos, tables[r:r + 1],
+                                  qpos[r:r + 1], cfg=cfg)
+        assert torch.equal(one[0], out[r]), r
 
 
 @pytest.mark.cuda

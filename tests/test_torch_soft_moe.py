@@ -4,7 +4,8 @@
   K3 (online combine), which the wrappers run on CPU tensors, against the
   JAX Pallas kernels in interpret mode at the same tiling (ragged tokens,
   several slot blocks, rows over several K1 token chunks with a ragged
-  last one), and against the single-sequence oracle
+  last one; K3 also over two and three of its 128-slot tiles at d = 1024
+  and 64), and against the single-sequence oracle
   ``kernels/ref.py`` of both packages: f32, atol 1e-5 and rtol 1e-5 (the
   two sides sum in other orders).
 - ``soft_moe_apply`` on the einsum and the kernel path, with and without
@@ -43,7 +44,6 @@ from repro_torch.kernels.tuning import (
     KernelConfig,
     combine_chunk,
     config_from_moe,
-    d_chunk,
     default_config,
     routing_chunk,
 )
@@ -133,6 +133,34 @@ def test_plain_combines_match_jax_kernels(jx, b, m, d, s, bt, bs):
     _close(combine_apply_ref(*targs, c_stats, cfg), y)
     for g, w in zip(stats, c_stats):
         _close(g, w)
+
+
+# (b, m, d, S, block_tokens): K3's online softmax over two 128-slot tiles
+# (160 = 128 + 32) at L/16's d = 1024, and over three (300 = 128 + 128 +
+# 44) with ragged token chunks (37 = 32 + 5)
+SLOT_TILED = [(2, 20, 1024, 160, 8), (1, 37, 64, 300, 16)]
+
+
+@pytest.mark.parametrize("b,m,d,s,bt", SLOT_TILED)
+def test_plain_online_combine_over_slot_tiles_matches_jax_kernel(
+        jx, b, m, d, s, bt):
+    """The plain K3 rescales y between its 128-slot tiles; the TPU kernel
+    between its 32-slot blocks. Both against each other, and K3's stats
+    against K1's and K2 on K1's stats against K3 (f32, 1e-5)."""
+    x, phi_n, ys = _inputs(b * 31 + s, b, m, d, s, scale=0.9)
+    cfg = KernelConfig(block_tokens=bt, block_slots=32)
+    targs = [_t(a) for a in (x, phi_n, ys)]
+    jy, jstats = jx.k.combine_online_pallas(
+        *(jx.jnp.asarray(a) for a in (x, phi_n, ys)),
+        jx.KernelConfig(block_tokens=bt, block_slots=32, interpret=True))
+    y, stats = combine_online_ref(*targs, cfg)
+    _close(y, jy)
+    for g, w in zip(stats, jstats):
+        _close(g, w)
+    _, _, c_stats = routing_fwd_ref(targs[0], targs[1], cfg)
+    for g, w in zip(stats, c_stats):
+        _close(g, w)
+    _close(combine_apply_ref(*targs, c_stats, cfg), y)
 
 
 @pytest.mark.parametrize("b,m,d,s,bt,bs", TILED)
@@ -325,14 +353,18 @@ def test_routing_chunk_policy():
 
 
 def test_tile_policy():
-    # Hopper default: 32 x 32 blocks, clamped to the problem; the
-    # narrowest built d-chunk that covers d, else the widest
+    # Hopper default: 32 x 32 blocks, clamped to the problem; K3's chunk
+    # is K2's, FWD_TILES token blocks whatever d (no d-chunk: its logits
+    # are formed once over all of d)
     cfg = default_config(196, 768, 128)
-    assert (cfg.block_tokens, cfg.block_slots, d_chunk(768)) == (32, 32, 768)
+    assert (cfg.block_tokens, cfg.block_slots,
+            combine_chunk(cfg.block_tokens)) == (32, 32, 64)
     cfg = default_config(20, 64, 12)
-    assert (cfg.block_tokens, cfg.block_slots, d_chunk(64)) == (24, 16, 128)
-    assert d_chunk(384) == 384 and d_chunk(264) == 384
-    assert d_chunk(1024) == d_chunk(1280) == 768
+    assert (cfg.block_tokens, cfg.block_slots,
+            combine_chunk(cfg.block_tokens)) == (24, 16, 48)
+    assert combine_chunk(8) == 16 and combine_chunk(16) == 32
+    assert all(combine_chunk(default_config(196, d, 128).block_tokens) == 64
+               for d in (64, 264, 768, 1024, 1280))
     moe = MoEConfig(variant="soft", num_experts=128)
     assert config_from_moe(moe, 196, 768) == default_config(196, 768, 128)
     pinned = dataclasses.replace(moe, kernel_block_tokens=16,
@@ -353,13 +385,14 @@ def cuda():
     return torch.device("cuda")
 
 
-# (b, m, d, S, cfg): ragged tokens and slots; a chunk wider than d
-# (264 of 384 columns) and L/16's d = 1024 over two 768-column chunks (K3);
-# a reduced granite layer: K1 over five 64-token chunks, the last ragged
-# (300 = 4 x 64 + 44)
+# (b, m, d, S, cfg): ragged tokens and slots, a ragged last 64-column
+# tile of the mix (d = 264); L/16's d = 1024; a reduced granite layer: K1
+# over five 64-token chunks, the last ragged (300 = 4 x 64 + 44); two of
+# the K2/K3 128-slot tiles (150 = 128 + 22: K3 rescales between them)
 CUDA_CASES = [(3, 70, 264, 40, None),
               (2, 45, 1024, 40, KernelConfig(block_tokens=16, block_slots=8)),
-              (2, 300, 1024, 32, None)]
+              (2, 300, 1024, 32, None),
+              (2, 70, 264, 150, None)]
 
 
 @pytest.mark.cuda
