@@ -59,11 +59,16 @@ prints no result line):
    K1's saved stats) against its plain PyTorch version and against the
    chunked oracle ``core.inspection.routing_health_from_stats`` on the
    card at the granite-moe-1b-a400m+soft layer (b = 8, m = 2048, d = 1024,
-   S = 32) and the B/16 layer, in bf16 and f32, and at a ragged case over
-   several slot blocks; checks batched == batch-1 and run-to-run bitwise
-   and that malformed operands raise; then times the kernel beside its
+   S = 32) and the B/16 layer, in bf16 and f32, at a ragged case over
+   several slot blocks and at rows of three of the kernel's token chunks
+   with a ragged last one over two of its 128-slot tiles; checks the sum
+   identities (per row the importance sums to m and the token
+   contributions to S), batched == batch-1 and run-to-run bitwise, and
+   that malformed operands raise; then, at the granite and the B/16
+   layer, times the kernel beside its bound and its tensor-core design's
    bound, its plain version and the einsum path of the same reductions
-   (no single PyTorch call computes them).
+   (no single PyTorch call computes them), with the device time of each
+   launch of a call (norm pre-pass, main kernel, merge).
 7. serve: full-width qwen2-0.5b (24 layers, random weights from a seeded
    generator, bf16 compute) answers 16 greedy requests through
    ``ServeEngine(backend="paged")``; the kernel's launch count must equal
@@ -228,7 +233,7 @@ def kernel_label(line):
     line (a mangled name: its nested identifiers, each prefixed by its
     length, then its template arguments: the element type and, for the
     Soft-MoE kernels, K1's chunk rows in 32-token units or the slot tile's
-    32-slot count (K2, K3, K4, K5))."""
+    32-slot count (K2-K6))."""
     import re
 
     mangled = line.split("'")[1] if "'" in line else line
@@ -247,7 +252,8 @@ def kernel_label(line):
         args.append("f32")
     nv = re.search(r"Li(\d+)E", rest)
     if nv and (label.endswith("bwd_kernel") or label in (
-            "combine_apply_kernel", "combine_online_kernel")):  # K2-K5
+            "combine_apply_kernel", "combine_online_kernel",
+            "health_kernel")):  # K2-K6
         args.append(f"slot tile {32 * int(nv.group(1))}")
     elif nv and label == "routing_kernel":  # K1: the chunk's token rows
         args.append(f"chunk <= {32 * int(nv.group(1))} tokens")
@@ -570,12 +576,16 @@ def soft_moe_fwd_design_bound(x, s, kind):
 
 
 def launch_times(torch, kern, shape, name, tag="softmoe"):
-    """Log one call's device time by launch (5 calls profiled): the norm
-    pre-pass, the main kernel, the merge or partial sums."""
+    """Log the device time by launch of 5 profiled calls: for each kernel
+    (the norm pre-pass, the main kernel, the merge or partial sums) the
+    mean time of a launch, the launches the trace caught (it can miss one
+    of the window's first launches, so a mean per launch, not a sum over
+    5) and those launches per call; a launch's mean times its launches
+    per call is the kernel's time in one call."""
     _, prof = profile_ticks(torch, types.SimpleNamespace(step=kern), 5)
-    log(f"[{tag}] {name} device time of one call by kernel ({shape}): "
-        + "; ".join(f"{kname[:60]} {us / 5:.1f} us x{n // 5}"
-                    for kname, us, n in prof))
+    log(f"[{tag}] {name} device time by kernel, 5 calls ({shape}): "
+        + "; ".join(f"{kname[:60]} {us / n:.1f} us a launch, {n} launches "
+                    f"({n / 5:g} a call)" for kname, us, n in prof))
 
 
 def softmoe_yardsticks(torch, x, phi_n, ys, flush, shape):
@@ -1333,8 +1343,40 @@ def health_bounds(x, s):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def phase_routing_health(torch):
-    from repro_torch.core.inspection import routing_health_from_stats
+def health_design_bound(x, s, x_reads=2):
+    """Least time on the card for the work K6's tensor-core design runs
+    (csrc/soft_moe_routing_health.cu): the logits, 2 m S d flops a row, as
+    passes on the tensor cores at the dense TF32 peak (bf16 x: two passes,
+    Phi_n split; f32 x: three), against the bytes of health_bounds plus
+    what the design adds: x read ``x_reads`` times (twice: the norm
+    pre-pass and the main kernel; once: a design that folds the norm into
+    the main kernel), the norms written and read, and the chunks' two
+    per-slot partials (b, n_chunks, S) f32 written and read."""
+    from repro_torch.kernels.tuning import combine_chunk, default_config
+
+    b, m, d = x.shape
+    passes = 2 if x.element_size() == 2 else 3
+    t_ops = passes * 2.0 * b * m * s * d / TF32_FLOPS
+    nch = -(-m // combine_chunk(default_config(m, d, s).block_tokens))
+    nbytes = (health_bounds(x, s)[2]
+              + (x_reads - 1) * b * m * d * x.element_size()
+              + 2 * b * m * 4 + 2 * 2 * b * nch * s * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, t_ops)
+
+
+# the layers K6 is timed at: (label, seed, b, m, d, S), bf16 x
+HEALTH_SHAPES = (("granite", 600, 8, 2048, 1024, 32),
+                 ("B/16", 602, 64, 196, 768, 128))
+
+
+def health_times(torch):
+    """Time K6 at the granite and B/16 layers in bf16 (phase 6's first
+    and third cases), beside its bound, its design's bound, its plain
+    version and the einsum path of the same reductions (no single PyTorch
+    call computes them), with the device time of each launch of a call.
+    Returns {label: numbers}."""
     from repro_torch.core.soft_moe import (
         _dense_routing_health,
         soft_moe_weights,
@@ -1344,13 +1386,66 @@ def phase_routing_health(torch):
         routing_health,
         routing_health_ref,
     )
-    from repro_torch.kernels.tuning import KernelConfig
+
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    out = {}
+    for label, seed, b, m, d, s in HEALTH_SHAPES:
+        x, phi_n, _ = soft_moe_case(torch, seed, b, m, d, s, torch.bfloat16)
+        with torch.no_grad():
+            _, d_stats, c_stats = routing_fwd(x, phi_n)
+        phi3, one = phi_n.reshape(d, s, 1), torch.ones((), device="cuda")
+
+        def kern():
+            return routing_health(x, phi_n, d_stats, c_stats)
+
+        def einsum_path():
+            return _dense_routing_health(*soft_moe_weights(x, phi3, one))
+
+        kernel_ms = time_ms(torch, kern, flush=flush)
+        plain_ms = time_ms(torch, lambda: routing_health_ref(
+            x, phi_n, d_stats, c_stats), reps=3, flush=flush)
+        einsum_ms = time_ms(torch, einsum_path, flush=flush)
+        bound_ms, bound_by, nbytes, flops = health_bounds(x, s)
+        design_ms, design_by, d_bytes, d_ops = health_design_bound(x, s)
+        once_ms, once_by, once_bytes, _ = health_design_bound(x, s, 1)
+        shape = f"b={b} m={m} d={d} S={s} bf16"
+        log(f"[health] routing_health timing at the {label} layer ({shape}, "
+            f"L2 flushed): kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms=null (no single library call) "
+            f"einsum_path_ms={einsum_ms:.4f} (soft_moe_weights + "
+            f"_dense_routing_health) bound={bound_ms * 1e3:.2f} us "
+            f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) "
+            f"-> {flops / kernel_ms / 1e9:.2f} TFLOP/s; design bound="
+            f"{design_ms * 1e3:.2f} us ({design_by}: {d_bytes / 1e6:.1f} MB "
+            f"with the second x read, the norms and the partials, "
+            f"{d_ops * 1e6:.2f} us of tensor-core passes); with x read "
+            f"once {once_ms * 1e3:.2f} us ({once_by}: "
+            f"{once_bytes / 1e6:.1f} MB)")
+        launch_times(torch, kern, shape, "routing_health", tag="health")
+        out[label] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "einsum_path_ms": einsum_ms}
+    return out
+
+
+def phase_routing_health(torch):
+    from repro_torch.core.inspection import routing_health_from_stats
+    from repro_torch.kernels.soft_moe_kernels import (
+        routing_fwd,
+        routing_health,
+        routing_health_ref,
+    )
+    from repro_torch.kernels.tuning import KernelConfig, combine_chunk
 
     # Elementwise |out - ref| <= atol + rtol |ref|, all f32: against the
     # plain version 1e-5 + 1e-4 |ref| (sums of up to 2048 terms taken in
     # other orders, logits dotted over d in another order); against the
     # chunked oracle, which normalizes x before the dot, 1e-4 + 1e-4 |ref|.
-    tol, oracle_tol = (1e-5, 1e-4), (1e-4, 1e-4)
+    # The sum identities (each token's combine weights sum to 1 over the
+    # slots, each slot's dispatch weights to 1 over the tokens): per row
+    # the importance sums to m and the token contributions to S, within
+    # 1e-4 relative.
+    tol, oracle_tol, ident_rtol = (1e-5, 1e-4), (1e-4, 1e-4), 1e-4
     names = ("disp_entropy", "importance", "comb_entropy", "token_contrib")
     cases = [
         # (label, b, m, d, S, dtype, cfg)
@@ -1363,6 +1458,14 @@ def phase_routing_health(torch):
         ("ragged m45 d264 S40 f32", 3, 45, 264, 40, torch.float32, None),
         ("ragged m45 d264 S40 bf16 bt16 bs8", 3, 45, 264, 40,
          torch.bfloat16, KernelConfig(block_tokens=16, block_slots=8)),
+        # three of the kernel's 64-token chunks with a ragged last one (150
+        # = 64 + 64 + 22) over two of its 128-slot tiles (160 = 128 + 32)
+        ("chunks m150 d264 S160 f32", 3, 150, 264, 160, torch.float32, None),
+        ("chunks m150 d264 S160 bf16", 3, 150, 264, 160, torch.bfloat16,
+         None),
+        # chunks of 32 tokens (70 = 32 + 32 + 6), slot tiles 128 + 8
+        ("chunks m70 d64 S136 bf16 bt16 bs8", 2, 70, 64, 136, torch.bfloat16,
+         KernelConfig(block_tokens=16, block_slots=8)),
     ]
     main = {}
     for i, (label, b, m, d, s, dt, kcfg) in enumerate(cases):
@@ -1381,6 +1484,11 @@ def phase_routing_health(torch):
             errs[n], ok = within(torch, g, w, *tol)
             errs[n + " vs oracle"], ok2 = within(torch, g, o, *oracle_tol)
             oks += [ok, ok2]
+        for n, g, total in (("sum importance", got[1], m),
+                            ("sum token_contrib", got[3], s)):
+            errs[n + " rel"] = ((g.double().sum(1) - total).abs().max()
+                                .item() / total)
+            oks.append(errs[n + " rel"] <= ident_rtol)
         finite = all(bool(torch.isfinite(t).all()) for t in got)
         bitwise = True
         for r in sorted({0, min(1, b - 1), b - 1}):
@@ -1391,11 +1499,14 @@ def phase_routing_health(torch):
         again = routing_health(x, phi_n, d_stats, c_stats, kcfg)
         torch.cuda.synchronize()
         same = all(torch.equal(a, g) for a, g in zip(again, got))
+        ct = combine_chunk((kcfg or KernelConfig()).block_tokens)
         log(f"[health] {label}: b={b} m={m} d={d} S={s} "
-            f"{str(dt).replace('torch.', '')} max_abs_err "
+            f"{str(dt).replace('torch.', '')} chunks={-(-m // ct)} of {ct} "
+            f"tokens, {-(-s // 128)} slot tile(s); max_abs_err "
             + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
             + f" (tol plain {tol[0]:.0e} + {tol[1]:.0e}|ref|, oracle "
-            f"{oracle_tol[0]:.0e} + {oracle_tol[1]:.0e}|ref|: {all(oks)}); "
+            f"{oracle_tol[0]:.0e} + {oracle_tol[1]:.0e}|ref|, identities "
+            f"{ident_rtol:.0e} relative: {all(oks)}); "
             f"finite={finite} batched==batch1_bitwise={bitwise} "
             f"second_run_bitwise={same}")
         if not (all(oks) and finite and bitwise and same):
@@ -1436,36 +1547,17 @@ def phase_routing_health(torch):
     if routing_health.launches != before:
         raise AssertionError("a malformed call launched the kernel")
 
-    # Times at the granite layer's shapes (b=8, m=2048, d=1024, S=32,
-    # bf16). No single PyTorch call computes these four reductions; the
-    # yardstick is the port's einsum path on the same operands
-    # (soft_moe_weights, then _dense_routing_health).
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    b, m, d = x.shape
-    s = phi_n.shape[1]
-    phi3, one = phi_n.reshape(d, s, 1), torch.ones((), device="cuda")
-
-    def einsum_path():
-        return _dense_routing_health(*soft_moe_weights(x, phi3, one))
-
-    kernel_ms = time_ms(torch, lambda: routing_health(x, phi_n, d_stats,
-                                                      c_stats), flush=flush)
-    plain_ms = time_ms(torch, lambda: routing_health_ref(x, phi_n, d_stats,
-                                                         c_stats),
-                       reps=3, flush=flush)
-    einsum_ms = time_ms(torch, einsum_path, flush=flush)
-    bound_ms, bound_by, nbytes, flops = health_bounds(x, s)
-    log(f"[health] routing_health timing (b={b} m={m} d={d} S={s} bf16, L2 "
-        f"flushed): kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms=null (no single library call) "
-        f"einsum_path_ms={einsum_ms:.4f} (soft_moe_weights + "
-        f"_dense_routing_health) bound={bound_ms * 1e3:.2f} us ({bound_by}: "
-        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) -> "
-        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
+    # Times at the granite layer's shapes (the kernels line) and the B/16
+    # layer's
+    times = health_times(torch)
+    gran = times["granite"]
     return {"routing_health": {
-        "max_abs_err": main["err"], "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "einsum_path_ms": einsum_ms}}
+        "max_abs_err": main["err"], "ms": gran["ms"],
+        "plain_ms": gran["plain_ms"], "bound_ms": gran["bound_ms"],
+        "bound_by": gran["bound_by"], "library_ms": None,
+        "einsum_path_ms": gran["einsum_path_ms"],
+        "b16": {k: times["B/16"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "einsum_path_ms")}}}
 
 
 # ---------------------------------------------------------------------------

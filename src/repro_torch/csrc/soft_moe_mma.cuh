@@ -1,14 +1,15 @@
 // Tensor-core and staging pieces shared by the Soft-MoE kernels for Hopper
 // (sm_90a) that run their products on the tensor cores: K1 routing
-// (soft_moe_routing.cu), K2/K3 combine (soft_moe_combine.cu) and the
-// backward kernels K4/K5 (soft_moe_bwd.cuh).
+// (soft_moe_routing.cu), K2/K3 combine (soft_moe_combine.cu), the
+// backward kernels K4/K5 (soft_moe_bwd.cuh) and K6 routing health
+// (soft_moe_routing_health.cu).
 //
 // Products run with mma.sync at f32 accuracy: a bf16 operand is exact in
 // TF32; an f32 operand is split into a TF32 high part and a TF32 low
 // part (make_frag), and a product takes as many passes as that needs
 // (mma_f32). Operand tiles are staged from global memory with cp.async
-// (cp16 / cp4, stage_rows, stage_phi). The forward kernels K1, K2 and K3
-// form their logits tile with logits_tile_mma.
+// (cp16 / cp4, stage_rows, stage_phi). The forward kernels K1, K2, K3
+// and K6 form their logits tile with logits_tile_mma.
 #pragma once
 
 #include <type_traits>
@@ -227,7 +228,7 @@ inline bool aligned16(const void* p) {
 inline int slot_tile_units(int S) { return S <= 32 ? 1 : S <= 64 ? 2 : 4; }
 
 // ---------------------------------------------------------------------------
-// the forward kernels' logits tile (K1, K2, K3)
+// the forward kernels' logits tile (K1, K2, K3, K6)
 // ---------------------------------------------------------------------------
 
 constexpr int kKL = 32;     // d depth of one logits stage: one 32-deep slice

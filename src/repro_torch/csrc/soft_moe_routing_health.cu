@@ -16,203 +16,246 @@
 //   comb_entropy[t]  = -sum_s C log C      token_contrib[t] = sum_s D
 // No (m x S) logits or weights tensor reaches device memory.
 //
-// What bounds it on the H100: arithmetic. The logits are 2 m S d flops a
-// row in f32 on the CUDA cores; the weights and their sums O(m S). At the
-// granite-moe-1b-a400m+soft layer (B=8, m=2048, d=1024, S=32, bf16 x) that
-// is ~1.07 GFLOP (~16 us at 67 TFLOP/s) against ~34 MB of x (~10 us at
-// 3.35 TB/s).
+// What bounds it on the H100: at the f32 rate, arithmetic (the logits, 2 m
+// S d flops a row: ~1.07 GFLOP at the granite-moe-1b-a400m+soft layer, B=8,
+// m=2048, d=1024, S=32, bf16 x, ~16 us at 67 TFLOP/s, against ~34 MB). On
+// the tensor cores the logits take two TF32 passes (bf16 x; three for f32
+// x), ~4.3 us at the dense TF32 peak, so the bytes bind: x read by the norm
+// pre-pass and again by the main kernel, ~67 MB, ~20 us
+// (chip_smoke.py::health_design_bound).
 //
 // Design (the TPU kernel's grid (b, slot block, token block) runs in order:
-// it sums the per-slot outputs over consecutive token blocks in scratch and
-// keeps the per-token outputs in a full-length scratch across the slot-block
-// axis, written out on every visit with the last write winning; CUDA blocks
-// run in no order):
-//   * A pre-pass computes every token's inverse L2 norm (O(B m d) reads).
-//   * One CTA per (token chunk, slot block of 32, row). A chunk is `tiles`
-//     token blocks (HEALTH_TILES in kernels/tuning.py), so the grid fills
-//     the card at a few rows and 32 slots. For each 32 x 32 logits tile the
-//     CTA loops over all of d (the outputs are O(m + S): there is no (bs x
-//     d) accumulator, so no d-chunk split and no logits recompute).
-//   * The CTA sums its slot block's disp_entropy and importance over its
-//     chunk in shared memory and writes them as the chunk's partial
-//     (B, n_chunks, S); each token's comb_entropy and token_contrib over
-//     the slot block is the block's partial (B, n_slot_blocks, m).
-//   * A second kernel sums the partials in chunk and slot-block order: no
-//     atomics, and every reduction stays inside one row in a fixed order,
-//     so row i of a batched launch equals a batch-1 launch bitwise (the
-//     per-row invariant of src/repro/kernels/ops.py).
-//   * Pad tokens and pad slots of the last blocks are skipped: the TPU
-//     kernel masks them at -1e30, where their terms are exactly zero.
-//   * f32 arithmetic on the CUDA cores, as the TPU kernel's.
-#include "soft_moe_common.cuh"
+// it carries the per-slot sums over token blocks in scratch and the
+// per-token sums in a full-length scratch across the slot-block axis; CUDA
+// blocks run in no order). It is K2's body (soft_moe_combine.cu) with the
+// four sums in place of the mix:
+//   * A pre-pass computes every token's inverse L2 norm (inv_norm_kernel).
+//   * One CTA per (token chunk, row); a chunk is `ct` tokens
+//     (kernels/tuning.py::combine_chunk, at most kCT = 64), fixed whatever
+//     the batch. For each tile of up to 128 slots (SC x 32, a template
+//     parameter) the CTA forms its (chunk x slot tile) logits once over the
+//     whole of d on the tensor cores (soft_moe_mma.cuh::logits_tile_mma,
+//     split TF32: f32 accuracy) into shared memory.
+//   * From that tile, in one pass that forms each weight once: a warp per
+//     token sums C log C and D over the tile's slots, carried across the
+//     slot tiles in order, so a token's comb_entropy and token_contrib are
+//     whole in its CTA and written once; each lane sums D log D and C of
+//     its slots over the warp's tokens, and the warps' sums are added in
+//     order: the chunk's per-slot partial (B, n_chunks, S).
+//   * A second kernel sums the chunk partials in chunk order. No atomics:
+//     every reduction stays inside one row in a fixed order, so row i of a
+//     batched launch equals a batch-1 launch bitwise (the per-row invariant
+//     of src/repro/kernels/ops.py).
+//   * Pad tokens (rows of the 16-row m-tiles past the chunk) and pad slots
+//     (columns past S) are skipped; the TPU kernel masks them at -1e30,
+//     where their terms are exactly zero. No log of a weight is taken: the
+//     w log w terms come from the shifted logits. expf and logf are the
+//     accurate ones.
+#include "soft_moe_mma.cuh"
 
 namespace {
 
 using namespace smoe;
 
+constexpr int kCT = 64;  // tokens a CTA holds: a chunk is at most this
+
 struct HealthArgs {
-  const void* x;          // (B, m, d)
-  const float* phi;       // (d, S)
-  const float* rn;        // (B, m) inverse norms from the pre-pass
-  const float* d_mx;      // (B, S)
-  const float* d_den;     // (B, S)
-  const float* c_mx;      // (B, m)
-  const float* c_den;     // (B, m)
-  float* p_dent;          // (B, nch, S) per-chunk partials
-  float* p_imp;           // (B, nch, S)
-  float* p_cent;          // (B, nsb, m) per-slot-block partials
-  float* p_contrib;       // (B, nsb, m)
-  int m, d, S, bt, bs, tiles, nch, nsb;
+  const void* x;       // (B, m, d)
+  const float* phi;    // (d, S)
+  const float* rn;     // (B, m) inverse norms from the pre-pass
+  const float* d_mx;   // (B, S)
+  const float* d_den;  // (B, S)
+  const float* c_mx;   // (B, m)
+  const float* c_den;  // (B, m)
+  float* dent;         // (B, nch, S) the chunks' per-slot partials
+  float* imp;          // (B, nch, S)
+  float* cent;         // (B, m)
+  float* contrib;      // (B, m)
+  int m, d, S, ct, nch;
+  bool phi_vec;        // Phi_n rows 16-byte aligned (S % 4 == 0)
 };
 
-constexpr int kLd = kTile + 1;  // row stride of a 32 x 32 tile
+// Shared memory of one CTA (bytes): the logits tile [kCT][WS]; per token
+// rn, c_mx, log c_den and the running comb_entropy and token_contrib; per
+// slot of the tile d_mx and log d_den; the warps' per-slot sums
+// [2][kWarps][STC]; then the logits loop's kStages.
+template <typename T, int SC>
+struct HealthLayout {
+  static constexpr int STC = 32 * SC;  // slots of a slot tile
+  static constexpr int WS = STC + 4;   // logits rows (4 mod 32 floats)
+  static constexpr size_t kPre =
+      ((size_t)(kCT * WS + 5 * kCT + 2 * STC + 2 * kWarps * STC) * 4 + 127) /
+      128 * 128;
+  static constexpr size_t kA = LogitsStage<T, STC>::bytes(kCT);
+  static constexpr size_t kBytes = kPre + kStages * kA;
+};
 
-// One CTA per (token chunk, slot block, row).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) health_kernel(HealthArgs a) {
-  const int jc = blockIdx.x, js = blockIdx.y, row = blockIdx.z;
+template <typename T, int SC>
+__global__ void __launch_bounds__(kThreads, 2) health_kernel(HealthArgs a) {
+  using Ly = HealthLayout<T, SC>;
+  constexpr int STC = Ly::STC, WS = Ly::WS;
+  const int chunk = blockIdx.x, row = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m = a.m, d = a.d, S = a.S;
-  const int s0 = js * a.bs, ns = min(a.bs, S - s0);
-  const int t_begin = jc * a.bt * a.tiles;
-  const int t_end = min(m, t_begin + a.bt * a.tiles);
+  const int t0 = chunk * a.ct, nt = min(a.ct, m - t0);
 
-  __shared__ LogitsSmem lsm;
-  __shared__ float L[kTile * kLd];    // logits of the tile
-  __shared__ float wd[kTile * kLd];   // D
-  __shared__ float wdl[kTile * kLd];  // D log D
-  __shared__ float wc[kTile * kLd];   // C
-  __shared__ float wcl[kTile * kLd];  // C log C
-  __shared__ float dmx_s[kTile], ldden_s[kTile], cmx_s[kTile], lcden_s[kTile];
-  __shared__ float dent_s[kTile], imp_s[kTile];
+  extern __shared__ float4 smem4[];
+  float* L = reinterpret_cast<float*>(smem4);  // [kCT][WS] logits
+  float* trn = L + kCT * WS;                   // per token: rn,
+  float* tcmx = trn + kCT;                     //   c_mx,
+  float* tlcden = tcmx + kCT;                  //   log c_den,
+  float* tcent = tlcden + kCT;                 //   -sum_s C log C so far
+  float* tcontrib = tcent + kCT;               //   sum_s D so far
+  float* sdmx = tcontrib + kCT;                // per slot of the tile: d_mx
+  float* sldden = sdmx + STC;                  //   and log d_den
+  float* red = sldden + STC;                   // [2][kWarps][STC] warp sums
+  char* stage = reinterpret_cast<char*>(smem4) + Ly::kPre;
 
-  if (tid < kTile) {
-    const size_t k = (size_t)row * S + s0 + tid;
-    dmx_s[tid] = tid < ns ? a.d_mx[k] : 0.f;
-    ldden_s[tid] = tid < ns ? logf(a.d_den[k]) : 0.f;
-    dent_s[tid] = 0.f;
-    imp_s[tid] = 0.f;
+  const size_t tok0 = (size_t)row * m + t0;
+  const T* x = static_cast<const T*>(a.x) + tok0 * d;
+  if (tid < nt) {
+    trn[tid] = a.rn[tok0 + tid];
+    tcmx[tid] = a.c_mx[tok0 + tid];
+    tlcden[tid] = logf(a.c_den[tok0 + tid]);
+    tcent[tid] = 0.f;
+    tcontrib[tid] = 0.f;
   }
-  const T* xrow = static_cast<const T*>(a.x) + (size_t)row * m * d;
-  const float* rn = a.rn + (size_t)row * m;
-  float* pcent = a.p_cent + ((size_t)row * a.nsb + js) * m;
-  float* pcontrib = a.p_contrib + ((size_t)row * a.nsb + js) * m;
-  __syncthreads();
+  // (read after the logits loop's first barrier)
 
-  for (int t0 = t_begin; t0 < t_end; t0 += a.bt) {
-    const int nt = min(a.bt, m - t0);
-    if (tid < kTile) {
-      const size_t k = (size_t)row * m + t0 + tid;
-      cmx_s[tid] = tid < nt ? a.c_mx[k] : 0.f;
-      lcden_s[tid] = tid < nt ? logf(a.c_den[k]) : 0.f;
+  const int nst = (S + STC - 1) / STC;
+  for (int js = 0; js < nst; ++js) {
+    const int s0 = js * STC, ns = min(STC, S - s0);
+    if (tid < ns) {
+      const size_t k = (size_t)row * S + s0 + tid;
+      sdmx[tid] = a.d_mx[k];
+      sldden[tid] = logf(a.d_den[k]);
     }
-    float dot[2][2];
-    logits_tile<T>(xrow + (size_t)t0 * d, nt, a.phi + s0, S, ns, d, lsm, dot,
-                   nullptr, 0, 0, tid);
-    store_logits(L, dot, rn + t0, nt, tid);
+
+    // ---- the tile's logits over the whole of d, warps 2 (two 16-token
+    // m-tiles each) x 4 (STC / 4 slots), as K2 forms them
+    logits_tile_mma<T, 2, 4, 2, SC>(
+        x, nt, a.phi, S, s0, d, a.phi_vec, stage, Ly::kA, tid,
+        [&](int tl, int s, float dot) {
+          if (tl < nt) L[tl * WS + s] = trn[tl] * dot;
+        });
     __syncthreads();
 
-    // The weights and their log-weight products, straight from the shifted
-    // logits (no log of a weight is taken); pad entries are zeros.
-    for (int i = tid; i < kTile * kTile; i += kThreads) {
-      const int t = i / kTile, s = i - t * kTile;
-      float vd = 0.f, vdl = 0.f, vc = 0.f, vcl = 0.f;
-      if (t < nt && s < ns) {
-        const float lg = L[t * kLd + s];
-        const float lnd = lg - dmx_s[s] - ldden_s[s];
-        vd = expf(lnd);
-        vdl = vd * lnd;
-        const float lnc = lg - cmx_s[t] - lcden_s[t];
-        vc = expf(lnc);
-        vcl = vc * lnc;
+    // ---- the weights, once each: one warp a token (tokens warp + 8 i),
+    // slots lane + 32 k. A token's sums over the tile's slots are a
+    // butterfly sum, added to its running sums; a slot's sums over the
+    // warp's tokens stay in the lane's registers.
+    float se[SC], sc[SC];
+#pragma unroll
+    for (int k = 0; k < SC; ++k) se[k] = sc[k] = 0.f;
+    for (int tl = warp; tl < nt; tl += kWarps) {  // warp-uniform
+      const float* lrow = L + tl * WS;
+      const float cmx = tcmx[tl], lcden = tlcden[tl];
+      float e = 0.f, c = 0.f;
+#pragma unroll
+      for (int k = 0; k < SC; ++k) {
+        const int s = lane + 32 * k;
+        if (s < ns) {
+          const float lg = lrow[s];
+          const float lnd = lg - sdmx[s] - sldden[s];
+          const float lnc = lg - cmx - lcden;
+          const float wd = expf(lnd), wc = expf(lnc);
+          e += wc * lnc;
+          c += wd;
+          se[k] += wd * lnd;
+          sc[k] += wc;
+        }
       }
-      wd[t * kLd + s] = vd;
-      wdl[t * kLd + s] = vdl;
-      wc[t * kLd + s] = vc;
-      wcl[t * kLd + s] = vcl;
+      e = warp_sum(e);
+      c = warp_sum(c);
+      if (lane == 0) {
+        tcent[tl] -= e;
+        tcontrib[tl] += c;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SC; ++k) {
+      red[warp * STC + lane + 32 * k] = se[k];
+      red[kWarps * STC + warp * STC + lane + 32 * k] = sc[k];
     }
     __syncthreads();
-
-    // Per slot, over the tile's tokens: one warp a slot, lane = token.
-    for (int s = warp; s < ns; s += kWarps) {
-      const float e = warp_sum(wdl[lane * kLd + s]);
-      const float c = warp_sum(wc[lane * kLd + s]);
-      if (lane == 0) {
-        dent_s[s] -= e;
-        imp_s[s] += c;
+    if (tid < ns) {  // the warps in order: the chunk's per-slot sums
+      float e = 0.f, c = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        e += red[w * STC + tid];
+        c += red[kWarps * STC + w * STC + tid];
       }
+      const size_t k = ((size_t)row * a.nch + chunk) * S + s0 + tid;
+      a.dent[k] = -e;
+      a.imp[k] = c;
     }
-    // Per token, over the block's slots: one warp a token, lane = slot.
-    for (int t = warp; t < nt; t += kWarps) {
-      const float e = warp_sum(wcl[t * kLd + lane]);
-      const float c = warp_sum(wd[t * kLd + lane]);
-      if (lane == 0) {
-        pcent[t0 + t] = -e;
-        pcontrib[t0 + t] = c;
-      }
-    }
-    __syncthreads();  // L, the weights and the stats are refilled next
+    // L, the slot stats and the warp sums are refilled by the next slot
+    // tile after the logits loop's barriers
   }
-  if (tid < ns) {
-    const size_t k = ((size_t)row * a.nch + jc) * S + s0 + tid;
-    a.p_dent[k] = dent_s[tid];
-    a.p_imp[k] = imp_s[tid];
+  if (tid < nt) {
+    a.cent[tok0 + tid] = tcent[tid];
+    a.contrib[tok0 + tid] = tcontrib[tid];
   }
 }
 
-// Sum the partials in order from 0: per slot over the token chunks, per
-// token over the slot blocks. Threads [0, B S) take the slots, the rest the
-// tokens.
+// Sum the chunks' per-slot partials (B, nch, S) in chunk order from 0.
 __global__ void __launch_bounds__(kThreads)
-    health_merge_kernel(HealthArgs a, int B, float* dent, float* imp,
-                        float* cent, float* contrib) {
-  long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long n_slots = (long long)B * a.S;
-  if (i < n_slots) {
-    const long long row = i / a.S, s = i - row * a.S;
-    float e = 0.f, c = 0.f;
-    for (int j = 0; j < a.nch; ++j) {
-      const size_t k = ((size_t)row * a.nch + j) * a.S + s;
-      e += a.p_dent[k];
-      c += a.p_imp[k];
-    }
-    dent[i] = e;
-    imp[i] = c;
-    return;
-  }
-  i -= n_slots;
-  if (i >= (long long)B * a.m) return;
-  const long long row = i / a.m, t = i - row * a.m;
+    health_merge_kernel(const float* p_dent, const float* p_imp, int nch,
+                        int S, long long n_slots, float* dent, float* imp) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_slots) return;
+  const long long row = i / S, s = i - row * S;
   float e = 0.f, c = 0.f;
-  for (int j = 0; j < a.nsb; ++j) {
-    const size_t k = ((size_t)row * a.nsb + j) * a.m + t;
-    e += a.p_cent[k];
-    c += a.p_contrib[k];
+  for (int j = 0; j < nch; ++j) {
+    const size_t k = ((size_t)row * nch + j) * S + s;
+    e += p_dent[k];
+    c += p_imp[k];
   }
-  cent[i] = e;
-  contrib[i] = c;
+  dent[i] = e;
+  imp[i] = c;
+}
+
+template <typename T, int SC>
+cudaError_t launch_health(const HealthArgs& a, int B, cudaStream_t stream) {
+  constexpr size_t smem = HealthLayout<T, SC>::kBytes;
+  auto kernel = health_kernel<T, SC>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<dim3(a.nch, B), kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_health_sc(const HealthArgs& a, int B,
+                             cudaStream_t stream) {
+  switch (slot_tile_units(a.S)) {
+    case 1: return launch_health<T, 1>(a, B, stream);
+    case 2: return launch_health<T, 2>(a, B, stream);
+    default: return launch_health<T, 4>(a, B, stream);
+  }
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. dtype code of x: 0 = float32,
 // 1 = bfloat16; Phi_n, the stats and every output are float32. Every
-// pointer is a device pointer: rn (B*m floats), p_dent / p_imp (B*nch*S
-// floats each, nch = ceil(m / (bt * tiles))) and p_cent / p_contrib
-// (B*nsb*m floats each, nsb = ceil(S / bs)) are scratch the caller
-// allocates. `stream` is a cudaStream_t. Launches the norm pre-pass, the
-// main kernel and the merge, and returns the first cudaError_t (0 =
-// success). Shapes the kernel does not take (bt or bs outside 1..32, tiles
-// < 1) return cudaErrorInvalidValue without launching.
+// pointer is a device pointer: rn (B*m floats) is scratch the caller
+// allocates, and so are p_dent / p_imp (B*nch*S floats each, nch =
+// ceil(m / ct)). `ct` is the tokens of a chunk (1..64). `stream` is a
+// cudaStream_t. Launches the norm pre-pass, the main kernel and the
+// merge, and returns the first cudaError_t (0 = success). Shapes the
+// kernels do not take (ct out of range, d not a multiple of 8, x not
+// 16-byte aligned) return cudaErrorInvalidValue without launching.
 extern "C" int soft_moe_routing_health_launch(
     const void* x, const void* phi, const void* d_mx, const void* d_den,
     const void* c_mx, const void* c_den, void* dent, void* imp, void* cent,
-    void* contrib, void* rn, void* p_dent, void* p_imp, void* p_cent,
-    void* p_contrib, int dtype, int B, int m, int d, int S, int bt, int bs,
-    int tiles, void* stream) {
-  if (B < 0 || B > 65535 || m <= 0 || d <= 0 || S <= 0 || bt < 1 ||
-      bt > kTile || bs < 1 || bs > kTile || tiles < 1 || dtype < 0 ||
-      dtype > 1) {
+    void* contrib, void* rn, void* p_dent, void* p_imp, int dtype, int B,
+    int m, int d, int S, int ct, void* stream) {
+  if (B < 0 || B > 65535 || m <= 0 || d <= 0 || S <= 0 || ct < 1 ||
+      ct > kCT || dtype < 0 || dtype > 1 || d % 8 != 0 || !aligned16(x)) {
     return (int)cudaErrorInvalidValue;
   }
   if (B == 0) return (int)cudaSuccess;
@@ -225,35 +268,28 @@ extern "C" int soft_moe_routing_health_launch(
   a.d_den = static_cast<const float*>(d_den);
   a.c_mx = static_cast<const float*>(c_mx);
   a.c_den = static_cast<const float*>(c_den);
-  a.p_dent = static_cast<float*>(p_dent);
-  a.p_imp = static_cast<float*>(p_imp);
-  a.p_cent = static_cast<float*>(p_cent);
-  a.p_contrib = static_cast<float*>(p_contrib);
+  a.dent = static_cast<float*>(p_dent);
+  a.imp = static_cast<float*>(p_imp);
+  a.cent = static_cast<float*>(cent);
+  a.contrib = static_cast<float*>(contrib);
   a.m = m;
   a.d = d;
   a.S = S;
-  a.bt = bt;
-  a.bs = bs;
-  a.tiles = tiles;
-  a.nch = (m + bt * tiles - 1) / (bt * tiles);
-  a.nsb = (S + bs - 1) / bs;
-  if (a.nch > 65535 || a.nsb > 65535) return (int)cudaErrorInvalidValue;
+  a.ct = ct;
+  a.nch = (m + ct - 1) / ct;
+  a.phi_vec = S % 4 == 0 && aligned16(phi);
   const long long n_tokens = (long long)B * m;
   cudaError_t e = dtype == 0
       ? launch_inv_norm<float>(x, static_cast<float*>(rn), n_tokens, d, s)
       : launch_inv_norm<__nv_bfloat16>(x, static_cast<float*>(rn), n_tokens, d, s);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.nch, a.nsb, B);
-  if (dtype == 0) {
-    health_kernel<float><<<grid, kThreads, 0, s>>>(a);
-  } else {
-    health_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
-  }
-  e = cudaGetLastError();
+  e = dtype == 0 ? launch_health_sc<float>(a, B, s)
+                 : launch_health_sc<__nv_bfloat16>(a, B, s);
   if (e != cudaSuccess) return (int)e;
-  const long long n_out = (long long)B * S + n_tokens;
-  health_merge_kernel<<<(unsigned)((n_out + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      a, B, static_cast<float*>(dent), static_cast<float*>(imp),
-      static_cast<float*>(cent), static_cast<float*>(contrib));
+  const long long n_slots = (long long)B * S;
+  health_merge_kernel<<<(unsigned)((n_slots + kThreads - 1) / kThreads),
+                        kThreads, 0, s>>>(
+      static_cast<const float*>(p_dent), static_cast<const float*>(p_imp),
+      a.nch, S, n_slots, static_cast<float*>(dent), static_cast<float*>(imp));
   return (int)cudaGetLastError();
 }

@@ -44,11 +44,11 @@ softmax on its own (chunks of ``tuning.routing_chunk`` tokens) and
 merges the chunks in chunk order, and the slot blocks' combine partials
 in slot-block order, as its kernel does. K3 carries its online
 (max, denom) over the kernel's 128-slot tiles, not over ``block_slots``.
-K6 splits each row's tokens
-into chunks of ``HEALTH_TILES`` token blocks and sums the chunks'
-partials in chunk order, as its kernel does; K4 and K5 do the same for
-dPhi_n and dYs with chunks of ``BWD_TILES`` token blocks, and a row's
-dPhi_n is the sum of its chunks' partials in chunk order.
+K6 takes each row's tokens in K2's chunks and 128-slot tiles and sums
+the chunks' per-slot partials in chunk order, as its kernel does; K4 and
+K5 do the same for dPhi_n and dYs with chunks of ``BWD_TILES`` token
+blocks, and a row's dPhi_n is the sum of its chunks' partials in chunk
+order.
 """
 from __future__ import annotations
 
@@ -59,7 +59,6 @@ import torch
 
 from .tuning import (
     BWD_TILES,
-    HEALTH_TILES,
     SOFT_MOE_TILE,
     KernelConfig,
     combine_chunk,
@@ -385,57 +384,41 @@ def combine_bwd_ref(x, phi_n, ys, g, c_stats, y,
     return dx.to(x.dtype), dphi.to(phi_n.dtype), dys.to(ys.dtype)
 
 
-def _health_row(xf, phi, dmx, dden, cmx, cden, bt, bs):
-    """K6's recurrences for one row, on the tiles the TPU wrapper pads to:
-    pad tokens and pad slots are masked at -1e30 (finite: 0 * -inf is
-    NaN), the stats padded with (max 0, denom 1). Returns (disp_entropy
-    (S,), importance (S,), comb_entropy (m,), token_contrib (m,))."""
+def _health_row(xf, phi, dmx, dden, cmx, cden, ct):
+    """K6's recurrences for one row, in the kernel's order: token chunks
+    of ct, 128-slot tiles inside a chunk with each token's sums carried
+    across them in order, the chunks' per-slot sums added in chunk order.
+    Pad tokens and pad slots are never formed: the TPU kernel's -1e30
+    mask makes their terms exactly zero. Returns (disp_entropy (S,),
+    importance (S,), comb_entropy (m,), token_contrib (m,))."""
     m, s = xf.shape[0], phi.shape[1]
-    m_pad, s_pad = -(-m // bt) * bt, -(-s // bs) * bs
-    dev = xf.device
-    x = torch.nn.functional.pad(xf, (0, 0, 0, m_pad - m))
-    ph = torch.nn.functional.pad(phi, (0, s_pad - s))
-    rn = _inv_norm(x)
-    ln_dden = torch.log(torch.nn.functional.pad(dden, (0, s_pad - s),
-                                                value=1.0))
-    dmx = torch.nn.functional.pad(dmx, (0, s_pad - s))
-    ln_cden = torch.log(torch.nn.functional.pad(cden, (0, m_pad - m),
-                                                value=1.0))
-    cmx = torch.nn.functional.pad(cmx, (0, m_pad - m))
-    valid_row = torch.arange(m_pad, device=dev) < m
-    valid_col = torch.arange(s_pad, device=dev) < s
-    span = bt * HEALTH_TILES
-    dent_parts, imp_parts = [], []  # one (S_pad,) per token chunk
-    cent = torch.zeros(s_pad // bs, m_pad, device=dev)  # per slot block
-    contrib = torch.zeros_like(cent)
-    for c0 in range(0, m_pad, span):  # one CTA per (chunk, slot block)
-        dent_c = torch.zeros(s_pad, device=dev)
-        imp_c = torch.zeros_like(dent_c)
-        for j, s0 in enumerate(range(0, s_pad, bs)):
-            sl = slice(s0, s0 + bs)
-            dent, imp = dent_c[sl], imp_c[sl]
-            for t0 in range(c0, min(c0 + span, m_pad), bt):
-                tk = slice(t0, t0 + bt)
-                lg = _logits(x[tk], rn[tk], ph[:, sl])  # (bt, bs)
-                row_ok, col_ok = valid_row[tk, None], valid_col[None, sl]
-                # dispatch direction: exact weights from the per-slot stats
-                ln_d = (torch.where(row_ok, lg, _NEG) - dmx[None, sl]
-                        - ln_dden[None, sl])
-                d_w = torch.exp(ln_d)
-                dent = dent - (d_w * ln_d).sum(0)
-                contrib[j, tk] = torch.where(col_ok, d_w, 0.0).sum(1)
-                # combine direction: from the per-token stats
-                ln_c = (torch.where(col_ok, lg, _NEG) - cmx[tk, None]
-                        - ln_cden[tk, None])
-                c_w = torch.exp(ln_c)
-                cent[j, tk] = -(c_w * ln_c).sum(1)
-                imp = imp + torch.where(row_ok, c_w, 0.0).sum(0)
-            dent_c[sl], imp_c[sl] = dent, imp
-        dent_parts.append(dent_c)
-        imp_parts.append(imp_c)
-    # the second pass: partials summed in chunk / slot-block order
-    return (_row_sum(dent_parts)[:s], _row_sum(imp_parts)[:s],
-            _row_sum(list(cent))[:m], _row_sum(list(contrib))[:m])
+    rn = _inv_norm(xf)
+    ln_dden, ln_cden = torch.log(dden), torch.log(cden)
+    dent_parts, imp_parts, cent, contrib = [], [], [], []
+    for t0 in range(0, m, ct):  # one CTA per (chunk, row)
+        tk = slice(t0, t0 + ct)
+        xt, rt = xf[tk], rn[tk]
+        cent_c = torch.zeros(xt.shape[0], device=xf.device)
+        contrib_c = torch.zeros_like(cent_c)
+        dent_c, imp_c = [], []
+        for s0 in range(0, s, _SLOT_TILE):
+            sl = slice(s0, s0 + _SLOT_TILE)
+            lg = _logits(xt, rt, phi[:, sl])  # (nt, ns)
+            # the w log w terms from the shifted logits: no log of a weight
+            ln_d = lg - dmx[None, sl] - ln_dden[None, sl]
+            ln_c = lg - cmx[tk, None] - ln_cden[tk, None]
+            d_w, c_w = torch.exp(ln_d), torch.exp(ln_c)
+            cent_c = cent_c - (c_w * ln_c).sum(1)
+            contrib_c = contrib_c + d_w.sum(1)
+            dent_c.append(-(d_w * ln_d).sum(0))
+            imp_c.append(c_w.sum(0))
+        cent.append(cent_c)
+        contrib.append(contrib_c)
+        dent_parts.append(torch.cat(dent_c))
+        imp_parts.append(torch.cat(imp_c))
+    # the second pass: the chunks' partials summed in chunk order
+    return (_row_sum(dent_parts), _row_sum(imp_parts), torch.cat(cent),
+            torch.cat(contrib))
 
 
 def _health_shapes(x, phi_n, d_stats, c_stats):
@@ -451,14 +434,17 @@ def routing_health_ref(x, phi_n, d_stats, c_stats,
                        cfg: Optional[KernelConfig] = None):
     """Plain version of K6: ``(disp_entropy (b, S), importance (b, S),
     comb_entropy (b, m), token_contrib (b, m))`` in f32 from K1's per-slot
-    ``d_stats`` and per-token ``c_stats`` (each a (max, denom) pair)."""
+    ``d_stats`` and per-token ``c_stats`` (each a (max, denom) pair), in
+    the kernel's chunks of ``combine_chunk(block_tokens)`` tokens and
+    128-slot tiles."""
     b, m, d, s = _health_shapes(x, phi_n, d_stats, c_stats)
     cfg = _resolve(cfg, m, d, s)
     phi = phi_n.float()
     dmx, dden = (t.float() for t in d_stats)
     cmx, cden = (t.float() for t in c_stats)
+    ct = combine_chunk(cfg.block_tokens)
     rows = [_health_row(x[i].float(), phi, dmx[i], dden[i], cmx[i], cden[i],
-                        cfg.block_tokens, cfg.block_slots) for i in range(b)]
+                        ct) for i in range(b)]
     if not b:
         f32 = dict(dtype=torch.float32, device=x.device)
         return (torch.zeros((0, s), **f32), torch.zeros((0, s), **f32),
@@ -776,25 +762,22 @@ def routing_health(x, phi_n, d_stats, c_stats,
         return routing_health_ref(x, phi_n, d_stats, c_stats, cfg)
     _refuse_grad(x, phi_n, *d_stats, *c_stats)
     _check_cuda(cfg, x, phi_n, stats=tuple(d_stats) + tuple(c_stats))
-    nsb = -(-s // cfg.block_slots)
-    nch = -(-m // (cfg.block_tokens * HEALTH_TILES))
+    ct = combine_chunk(cfg.block_tokens)
+    nch = -(-m // ct)
     f32 = dict(dtype=torch.float32, device=x.device)
     dent, imp = torch.empty((b, s), **f32), torch.empty((b, s), **f32)
     cent, contrib = torch.empty((b, m), **f32), torch.empty((b, m), **f32)
     rn = torch.empty((b, m), **f32)
     p_dent, p_imp = (torch.empty((b, nch, s), **f32) for _ in range(2))
-    p_cent, p_contrib = (torch.empty((b, nsb, m), **f32) for _ in range(2))
     fn = _launcher("soft_moe_routing_health",
-                   "soft_moe_routing_health_launch", 15, 8)
+                   "soft_moe_routing_health_launch", 13, 6)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), phi_n.data_ptr(), d_stats[0].data_ptr(),
                  d_stats[1].data_ptr(), c_stats[0].data_ptr(),
                  c_stats[1].data_ptr(), dent.data_ptr(), imp.data_ptr(),
                  cent.data_ptr(), contrib.data_ptr(), rn.data_ptr(),
-                 p_dent.data_ptr(), p_imp.data_ptr(), p_cent.data_ptr(),
-                 p_contrib.data_ptr(), _DTYPE_CODE[x.dtype], b, m, d, s,
-                 cfg.block_tokens, cfg.block_slots, HEALTH_TILES,
-                 _stream(x.device))
+                 p_dent.data_ptr(), p_imp.data_ptr(),
+                 _DTYPE_CODE[x.dtype], b, m, d, s, ct, _stream(x.device))
     if err != 0:
         raise RuntimeError(
             f"soft_moe_routing_health launch failed: cudaError {err}")

@@ -29,7 +29,8 @@ K3 carries its online (max, denom) over the body's 128-slot tiles, not
 over ``block_slots``. The CUDA sources hold the same caps:
 ``ROUTING_MAX_CHUNK`` is ``kMaxChunk`` of csrc/soft_moe_routing.cu, and
 the combine chunk, at most ``FWD_TILES * SOFT_MOE_TILE`` = 64 tokens, is
-bounded by ``kCT`` of csrc/soft_moe_combine.cu; each C entry point
+bounded by ``kCT`` of csrc/soft_moe_combine.cu and of
+csrc/soft_moe_routing_health.cu; each C entry point
 refuses a larger chunk. Neither depends on the batch, so a row's
 outputs do not either.
 
@@ -45,10 +46,12 @@ depends on the pool's tiling alone, never on the batch or on the other
 rows' lengths, so neither does a row's output. There is no interpret
 mode: a CPU tensor runs the plain PyTorch version of each kernel.
 
-The routing-health kernel (K6) reduces a row's tokens in chunks of
-``HEALTH_TILES`` token blocks, one CUDA block per (chunk, slot block,
-row), and sums the chunks' partials in chunk order; the chunk does not
-depend on the batch, so a row's statistics do not either.
+The routing-health kernel (K6) runs K2's body on the same chunks of
+``combine_chunk(block_tokens)`` tokens, one CUDA block per (chunk,
+row): it forms each 128-slot tile's logits once over the whole of d,
+carries each token's sums across the tiles and writes each chunk's
+per-slot sums, which a second pass adds in chunk order. The chunk does
+not depend on the batch, so a row's statistics do not either.
 
 The backward kernels (K4, K5) split a row's tokens the same way, in
 chunks of ``BWD_TILES`` token blocks (64 tokens at the default 32-token
@@ -67,9 +70,8 @@ import torch
 
 
 SOFT_MOE_TILE = 32  # largest token / slot block of the CUDA kernels
-FWD_TILES = 2  # token blocks of a K2/K3 chunk and of the smallest K1 chunk
+FWD_TILES = 2  # token blocks of a K2/K3/K6 chunk and of the smallest K1 chunk
 ROUTING_MAX_CHUNK = 256  # most tokens of a K1 chunk (kMaxChunk)
-HEALTH_TILES = 2  # token blocks one block of the routing-health kernel reduces
 BWD_TILES = 2  # token blocks of one chunk of the backward kernels K4, K5
 PAGED_SPLIT_KEYS = 128  # most keys of one split of K7 (a whole tile more)
 
@@ -112,9 +114,9 @@ def routing_chunk(m: int, s: int, bt: int) -> int:
 
 
 def combine_chunk(bt: int) -> int:
-    """Tokens of one chunk of the combine kernels (K2, K3) for token
-    blocks of bt: ``FWD_TILES`` token blocks, whatever m, d and the
-    batch."""
+    """Tokens of one chunk of the combine kernels (K2, K3) and of the
+    routing-health kernel (K6) for token blocks of bt: ``FWD_TILES``
+    token blocks, whatever m, d and the batch."""
     return FWD_TILES * bt
 
 

@@ -3,9 +3,12 @@ against the JAX package.
 
 - The plain version of K6, which the wrapper runs on CPU tensors, against
   the JAX Pallas kernel in interpret mode at the same tiling (ragged
-  tokens, several slot blocks, a ragged last slot block), in f32 and with
-  bf16 x, and against the chunked oracles of both packages: f32, atol and
-  rtol 1e-5 (sums in other orders).
+  tokens, several slot blocks, a ragged last slot block, rows of several
+  of the kernel's token chunks with a ragged last one, two of its
+  128-slot tiles), in f32 and with bf16 x, and against the chunked
+  oracles of both packages: f32, atol and rtol 1e-5 (sums in other
+  orders); its importance sums to m and its token contributions to S per
+  row, within 1e-5 relative.
 - ``core/inspection.py`` (streamed stats, the chunked twin, both
   ``routing_stats`` methods, ``summarize``) against the JAX module: f32,
   atol and rtol 1e-5.
@@ -80,8 +83,11 @@ def _inputs(seed, b, m, d, s, scale=1.3):
 
 
 # (b, m, d, S, block_tokens, block_slots): ragged tokens and several slot
-# blocks; a ragged last slot block; one row, one token block.
-TILED = [(3, 20, 32, 20, 8, 8), (2, 45, 48, 40, 16, 16), (1, 9, 16, 24, 8, 8)]
+# blocks; a ragged last slot block; one row, one token block; rows of three
+# of the kernel's token chunks (combine_chunk: 2 token blocks) with a ragged
+# last one, over two of its 128-slot tiles (160 = 128 + 32, 136 = 128 + 8).
+TILED = [(3, 20, 32, 20, 8, 8), (2, 45, 48, 40, 16, 16), (1, 9, 16, 24, 8, 8),
+         (1, 150, 24, 160, 32, 32), (2, 70, 16, 136, 16, 8)]
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16x"])
@@ -137,6 +143,19 @@ def test_plain_routing_health_row_independent_bitwise(b, m, d, s, bt, bs):
                                  tuple(t[r:r + 1] for t in c_stats), cfg)
         for a, f in zip(one, full):
             assert torch.equal(a[0], f[r])
+
+
+@pytest.mark.parametrize("b,m,d,s,bt,bs", TILED)
+def test_plain_routing_health_sum_identities(b, m, d, s, bt, bs):
+    """Each token's combine weights sum to 1 over the slots and each
+    slot's dispatch weights to 1 over the tokens: per row the importance
+    sums to m and the token contributions to S."""
+    x, phi_n = (_t(a) for a in _inputs(b + m + s, b, m, d, s))
+    cfg = KernelConfig(block_tokens=bt, block_slots=bs)
+    _, d_stats, c_stats = routing_fwd_ref(x, phi_n, cfg)
+    _, imp, _, contrib = routing_health_ref(x, phi_n, d_stats, c_stats, cfg)
+    _close(imp.sum(1), torch.full((b,), float(m)), atol=0, rtol=1e-5)
+    _close(contrib.sum(1), torch.full((b,), float(s)), atol=0, rtol=1e-5)
 
 
 def test_wrapper_runs_plain_version_on_cpu_and_carries_no_gradient():
@@ -251,7 +270,9 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [(3, 45, 264, 40, 32, 32),
-                                  (2, 200, 64, 12, 16, 8)])
+                                  (2, 200, 64, 12, 16, 8),
+                                  (1, 150, 24, 160, 32, 32),
+                                  (2, 70, 16, 136, 16, 8)])
 def test_cuda_routing_health_matches_plain_version(cuda, dtype, case):
     b, m, d, s, bt, bs = case
     cfg = KernelConfig(block_tokens=bt, block_slots=bs)
