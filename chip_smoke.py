@@ -89,6 +89,13 @@ prints no result line):
    K3 runs on the ops-level path that combines without saved stats
    (``kernels.ops.soft_moe_combine(..., c_stats=None)``), driven on one
    MoE layer and held against the layer's kernel path.
+8b. sparse vit: the paper's sparse baselines at B/16 with 128 experts
+   (``soft_moe_vit("b", 16, 128, variant=...)`` for ``tokens_choice`` and
+   ``experts_choice``, random f32 weights, bf16 compute) run 10 batch-64
+   forwards each beside soft-moe-b/16-128e on its kernel and einsum
+   paths: forward p50, images/s and peak memory per path; K1 and K2
+   launch once a MoE layer a forward on the Soft-MoE kernel path and
+   never on the others.
 9. train: full-width, full-depth soft-moe-b/16-128e training steps through
    ``train.make_train_step`` (batch 64 of ``data.SyntheticImages``, bf16
    compute, f32 params and AdamW moments, remat as the config sets it,
@@ -115,6 +122,31 @@ prints no result line):
    peak memory over 7 Trainer steps (which end in a save of the whole
    train state), step p50 with telemetry on and off in turns, and a
    profiled step with K6's share of device time.
+11. sparse lm train: full-width, full-depth granite-moe-1b-a400m as
+   configured (24 Tokens Choice layers, top-8 of 32 experts, capacity
+   factor 1.0, no BPR, groups of one sequence; random f32 weights, bf16
+   compute) on batch 8 x 2048 of ``SyntheticLM`` through
+   ``lm_loss(telemetry=True)`` and the ``Trainer`` (6 steps, the closing
+   save skipped: phase 10 times one of this size). At step 0 the first
+   MoE layer in f32, on the input the model feeds it, on the card
+   against the host CPU: the share of (token, choice) pairs whose expert
+   differs must be 0, and y, the aux loss and the dropped fraction agree
+   within 1e-4; every layer's dropped fraction and expert load spread;
+   K1-K6 must launch 0 times; step p50, tokens/s, peak memory and a
+   profiled step by kernel group, beside phase 10's +soft numbers.
+12. moe serve: the paged engine (K7, ``telemetry=True``, batch 8,
+   max_len 2048, block 16) serves full-width granite-moe-1b-a400m and
+   granite-moe-1b-a400m+soft (random weights, bf16 serving weights with
+   the routing weights in f32) over 8 requests of 16-256 prompt tokens,
+   16 new tokens each: every request finishes, K7 launches decode steps
+   x 24 times and K1-K6 never (serving runs the MoE einsum path), every
+   MoE layer's routing keys are present and finite in
+   ``telemetry_snapshot()``, the sparse ``dropped_fraction`` is 0
+   (dropless), and greedy tokens with telemetry on equal those with it
+   off; decode step p50 and tok/s on and off; ``batch_variance_probe``
+   (batch 4) on both granite configs, qwen2-0.5b and the sparse config
+   through the ``batch_coupled`` hatch, which must read more than the
+   default sparse config (the card's readings are recorded, not bounded).
 
 The lines before the last carry the numbers: the card line as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -1711,6 +1743,44 @@ def kernel_kind(name):
     return "other"
 
 
+def profile_step(torch, step, state, b, label):
+    """One train step under the profiler; logs its wall time, the
+    device's busy share and the device time by kernel group and by
+    kernel, and returns (state, wall s, device busy s)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        float(m["total_loss"])
+        pwall = time.perf_counter() - t0
+    per = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us, cnt = per.get(ev.name, (0.0, 0))
+            per[ev.name] = (us + ev.time_range.elapsed_us(), cnt + 1)
+    rows = sorted(((k, us, c) for k, (us, c) in per.items()),
+                  key=lambda r: -r[1])
+    busy = sum(us for _, us, _ in rows) / 1e6
+    log(f"[profile] {label}: one step in {pwall * 1e3:.1f} ms wall under "
+        f"the profiler; device busy {busy * 1e3:.1f} ms = "
+        f"{busy / pwall:.3f} of wall")
+    kinds = {}
+    for name, us, cnt in rows:
+        k = kernel_kind(name)
+        kinds[k] = (kinds.get(k, (0.0, 0))[0] + us,
+                    kinds.get(k, (0.0, 0))[1] + cnt)
+    for k, (us, cnt) in sorted(kinds.items(), key=lambda r: -r[1][0]):
+        log(f"[profile]   {k}: {us / 1e3:.2f} ms in {cnt} launches "
+            f"({us / 1e6 / busy:.3f} of device time)")
+    for name, us, cnt in rows[:12]:
+        log(f"[profile]   top: {us / 1e3:.2f} ms x{cnt} {name[:90]}")
+    return state, pwall, busy
+
+
 def phase_serve(torch, card):
     import numpy as np
 
@@ -2037,6 +2107,73 @@ def phase_vit(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 8b: the sparse B/16 ViTs beside the Soft-MoE one (forwards)
+# ---------------------------------------------------------------------------
+
+
+def phase_sparse_vit(torch, card):
+    """Tokens Choice and Experts Choice B/16 (128 experts, the paper's
+    sparse baselines) as batch-64 forwards beside soft-moe-b/16-128e on
+    its kernel and einsum paths: images/s, forward p50, peak memory."""
+    from repro_torch.configs import soft_moe_vit
+    from repro_torch.kernels.soft_moe_kernels import (
+        combine_apply,
+        combine_online,
+        routing_fwd,
+    )
+    from repro_torch.models import vit_apply, vit_init
+
+    kernels = (routing_fwd, combine_apply, combine_online)
+    batch, n_fwd = 64, 10
+    res = {}
+    for variant in ("soft", "tokens_choice", "experts_choice"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = soft_moe_vit("b", 16, 128, variant=variant)
+        params = vit_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+        patches = torch.randn(batch, cfg.frontend.num_embeds,
+                              cfg.frontend.embed_dim, device="cuda",
+                              generator=torch.Generator(device="cuda")
+                              .manual_seed(1))
+        for use_kernel in ((True, False) if variant == "soft" else (False,)):
+            with torch.inference_mode():
+                vit_apply(params, cfg, patches, use_kernel=use_kernel)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for k in kernels:
+                    k.launches = 0
+                times = []
+                for _ in range(n_fwd):
+                    t0 = time.perf_counter()
+                    logits, aux = vit_apply(params, cfg, patches,
+                                            use_kernel=use_kernel)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            launches = tuple(k.launches for k in kernels)
+            if logits.shape != (batch, 1000) or not bool(
+                    torch.isfinite(logits).all()) or not math.isfinite(
+                    float(aux)):
+                raise AssertionError(f"{cfg.name}: non-finite forward")
+            n_moe = len(cfg.moe_layer_indices())
+            want = ((n_moe * n_fwd, n_moe * n_fwd, 0) if use_kernel
+                    else (0, 0, 0))
+            if launches != want:
+                raise AssertionError(f"{cfg.name}: K1/K2/K3 launches "
+                                     f"{launches}, expected {want}")
+            path = f"{variant}{' kernel' if use_kernel else ''}"
+            res[path] = (statistics.median(times) * 1e3,
+                         torch.cuda.max_memory_allocated(), float(aux))
+        del params, patches, logits
+    log(f"[vit-sparse] {card}: B/16, 128 experts, batch {batch} x "
+        f"{cfg.frontend.num_embeds} patches, {n_fwd} forwards each "
+        f"(K1/K2/K3 launches checked: one a MoE layer a forward on the "
+        f"Soft-MoE kernel path, 0 elsewhere): "
+        + "; ".join(f"{p}: forward p50 {ms:.2f} ms = {batch / ms * 1e3:.1f} "
+                    f"images/s, peak {peak / 2**30:.3f} GiB, aux {aux:.4g}"
+                    for p, (ms, peak, aux) in res.items()))
+
+
+# ---------------------------------------------------------------------------
 # phase 9: Soft-MoE ViT-B/16 training steps at full width and depth
 # ---------------------------------------------------------------------------
 
@@ -2244,38 +2381,8 @@ def phase_train(torch, card):
         raise AssertionError("non-finite training loss")
 
     # Where the time goes: one profiled step
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    b = data.batch(1 + n_steps)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step_fn(state, b)
-        float(m["total_loss"])
-        pwall = time.perf_counter() - t0
-    per = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            us, cnt = per.get(ev.name, (0.0, 0))
-            per[ev.name] = (us + ev.time_range.elapsed_us(), cnt + 1)
-    rows = sorted(((k, us, c) for k, (us, c) in per.items()),
-                  key=lambda r: -r[1])
-    busy = sum(us for _, us, _ in rows) / 1e6
-    log(f"[profile] train {card}: one step in {pwall * 1e3:.1f} ms wall "
-        f"under the profiler; device busy {busy * 1e3:.1f} ms = "
-        f"{busy / pwall:.3f} of wall")
-    kinds = {}
-    for name, us, cnt in rows:
-        k = kernel_kind(name)
-        kinds[k] = (kinds.get(k, (0.0, 0))[0] + us,
-                    kinds.get(k, (0.0, 0))[1] + cnt)
-    for k, (us, cnt) in sorted(kinds.items(), key=lambda r: -r[1][0]):
-        log(f"[profile]   {k}: {us / 1e3:.2f} ms in {cnt} launches "
-            f"({us / 1e6 / busy:.3f} of device time)")
-    for name, us, cnt in rows[:10]:
-        log(f"[profile]   top: {us / 1e3:.2f} ms x{cnt} {name[:90]}")
+    state, _, _ = profile_step(torch, step_fn, state, data.batch(1 + n_steps),
+                               f"train {card}")
 
     # The closing save: the train state of the first MoE layer (params,
     # AdamW moments, step), through CheckpointManager, restored bitwise
@@ -2538,41 +2645,336 @@ def phase_lm_train(torch, card):
         raise AssertionError("K6 ran with telemetry off")
 
     # Where the time goes: one profiled step with telemetry on
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    b = data.batch(n_steps + 8)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step_on(state, b)
-        float(m["total_loss"])
-        pwall = time.perf_counter() - t0
-    per = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            us, cnt = per.get(ev.name, (0.0, 0))
-            per[ev.name] = (us + ev.time_range.elapsed_us(), cnt + 1)
-    rows = sorted(((k, us, c) for k, (us, c) in per.items()),
-                  key=lambda r: -r[1])
-    busy = sum(us for _, us, _ in rows) / 1e6
-    log(f"[profile] lm train {card}: one step in {pwall * 1e3:.1f} ms wall "
-        f"under the profiler; device busy {busy * 1e3:.1f} ms = "
-        f"{busy / pwall:.3f} of wall")
-    kinds = {}
-    for name, us, cnt in rows:
-        k = kernel_kind(name)
-        kinds[k] = (kinds.get(k, (0.0, 0))[0] + us,
-                    kinds.get(k, (0.0, 0))[1] + cnt)
-    for k, (us, cnt) in sorted(kinds.items(), key=lambda r: -r[1][0]):
-        log(f"[profile]   {k}: {us / 1e3:.2f} ms in {cnt} launches "
-            f"({us / 1e6 / busy:.3f} of device time)")
-    for name, us, cnt in rows[:12]:
-        log(f"[profile]   top: {us / 1e3:.2f} ms x{cnt} {name[:90]}")
+    state, pwall, busy = profile_step(torch, step_on, state,
+                                      data.batch(n_steps + 8),
+                                      f"lm train {card}")
     del state, trainer, step_on, step_off
     torch.cuda.empty_cache()
-    return {"routing_health": launches[5]}
+    summary = {"p50": p50, "peak": peak, "busy": busy / pwall,
+               "n_params": n_params}
+    return {"routing_health": launches[5]}, summary
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the paper's sparse baseline LM, trained at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def phase_sparse_lm_train(torch, card, soft):
+    """granite-moe-1b-a400m as configured (Tokens Choice, top-8 of 32,
+    capacity factor 1.0, no BPR, groups of one sequence): a full-width
+    layer on the card against the CPU in f32, then Trainer steps beside
+    the +soft run of phase 10 (``soft``: its summary)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import sparse_moe
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.soft_moe_kernels import (
+        combine_apply,
+        combine_bwd,
+        combine_online,
+        dispatch_bwd,
+        routing_fwd,
+        routing_health,
+    )
+    from repro_torch.models import lm, lm_init, lm_loss
+    from repro_torch.optim import OptimizerConfig, tree_leaves, tree_map
+    from repro_torch.train import Trainer, TrainerConfig, init_train_state
+
+    kernels = (routing_fwd, combine_apply, combine_online, dispatch_bwd,
+               combine_bwd, routing_health)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("granite-moe-1b-a400m")
+    moe = cfg.moe
+    n_moe = len(cfg.moe_layer_indices())
+    batch, seq = 8, 2048
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             lambda g: lm_init(g, cfg))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                       batch_size=batch, seed=0, device="cuda")
+    log(f"[sparse-lm] {cfg.name} as configured: {cfg.num_layers} layers "
+        f"({n_moe} {moe.variant}, top-{moe.top_k} of {moe.num_experts} "
+        f"experts, d_ff {moe.expert_d_ff}, capacity_factor "
+        f"{moe.capacity_factor}, bpr {moe.bpr}, group_size "
+        f"{moe.group_size}), d {cfg.d_model}, vocab {cfg.vocab_size}; "
+        f"scan_layers={cfg.scan_layers} remat={cfg.remat}; {n_params} params "
+        f"({n_params / 1e9:.4f} B); train state {state_bytes / 2**30:.3f} "
+        f"GiB (init {time.perf_counter() - t0:.1f} s); compute {cfg.dtype}, "
+        f"batch {batch} x {seq} tokens of SyntheticLM")
+
+    # Step 0: the first MoE layer, on the input the model feeds it
+    # (captured from its own forward), in f32 on the card and on the host
+    # CPU: the routes, then y, the aux loss and the dropped fraction.
+    b0 = data.batch(0)
+    seen, inner = [], lm.moe_apply
+
+    def capture(p, moe_cfg, xn, *a, **kw):
+        seen.append((p, moe_cfg, xn))
+        return inner(p, moe_cfg, xn, *a, **kw)
+
+    lm.moe_apply = capture
+    try:
+        with torch.no_grad():
+            _, m0 = lm_loss(state["params"], cfg, b0, telemetry=True)
+    finally:
+        lm.moe_apply = inner
+    p_moe, moe_cfg, xn = seen[0]
+    seen.clear()
+    telem0 = tree_map(lambda t: t.float().cpu(), m0["telemetry"])
+    loss0 = float(m0["loss"])
+    del m0
+    outs = {}
+    t_cpu = 0.0
+    b, m, d = xn.shape
+    coupled, gs = sparse_moe._routing_scope(moe_cfg, "train", b, m)
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), p_moe)
+        x = xn.float().to(dev)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            probs = torch.softmax(sparse_moe._router_logits(
+                p, x.reshape(b // gs, gs * m, d)), dim=-1)
+            _, eidx, _, keep, cap = sparse_moe._tokens_choice_route(
+                probs, moe_cfg, coupled)
+            y, met = sparse_moe.tokens_choice_apply(p, moe_cfg, x, cfg.act)
+        if dev == "cpu":
+            t_cpu = time.perf_counter() - t1
+        outs[dev] = [t.cpu() for t in (eidx, keep, y, met["moe_aux_loss"],
+                                       met["dropped_fraction"])]
+    (ei_g, kp_g, y_g, aux_g, dr_g), (ei_c, kp_c, y_c, aux_c, dr_c) = (
+        outs["cuda"], outs["cpu"])
+    differ = float((ei_g != ei_c).float().mean())
+    agree = ((ei_g == ei_c) & (kp_g == kp_c)).all(-1).reshape(-1)
+    y_err = ((y_g.reshape(-1, d)[agree] - y_c.reshape(-1, d)[agree])
+             .abs().max() / y_c.abs().max()).item()
+    aux_err = abs(float(aux_g) - float(aux_c)) / abs(float(aux_c))
+    dr_err = abs(float(dr_g) - float(dr_c)) / max(abs(float(dr_c)), 1e-30)
+    log(f"[sparse-lm] step 0, layer {cfg.moe_layer_indices()[0]} alone in "
+        f"f32 on its captured input, card vs host CPU ({t_cpu:.1f} s on "
+        f"the CPU): (token, choice) pairs whose expert differs "
+        f"{differ:.3e} (expected 0); tokens whose choices and drops agree "
+        f"{int(agree.sum())}/{agree.numel()}; on them y max|diff|/max|ref| "
+        f"{y_err:.3e} (tol 1e-4); moe_aux_loss {float(aux_g):.6f} vs "
+        f"{float(aux_c):.6f} rel {aux_err:.3e}; dropped_fraction "
+        f"{float(dr_g):.6f} vs {float(dr_c):.6f} rel {dr_err:.3e} (tol "
+        f"1e-4); capacity {cap} a group of {gs} sequence(s)")
+    if differ != 0.0 or y_err > 1e-4 or aux_err > 1e-4 or dr_err > 1e-4:
+        raise AssertionError("the sparse layer on the card disagrees with "
+                             "the CPU")
+    # per MoE layer, in layer order (a scanned segment's leaves are
+    # stacked (count,))
+    per_layer = {k: torch.cat([t["moe"][k].reshape(-1) for _, t in
+                               sorted(telem0["layers"].items())
+                               if "moe" in t]).tolist()
+                 for k in ("dropped_fraction", "expert_load_spread")}
+    log(f"[sparse-lm] step 0 loss {loss0:.6f} (ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.6f}); per layer dropped_fraction "
+        + " ".join(f"{v:.4f}" for v in per_layer["dropped_fraction"])
+        + "; expert_load_spread "
+        + " ".join(f"{v:.3f}" for v in per_layer["expert_load_spread"]))
+    if len(per_layer["dropped_fraction"]) != n_moe:
+        raise AssertionError("a MoE layer logged no telemetry")
+    if not all(math.isfinite(v) for leaf in tree_leaves(telem0)
+               for v in leaf.reshape(-1).tolist()):
+        raise AssertionError("non-finite sparse telemetry")
+    del p_moe, xn, outs, y_g, y_c
+
+    # The main path: the Trainer on the telemetry loss; counts from 0.
+    ckpt_dir = ROOT / "build" / "chip_smoke_sparse_lm_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_steps = 6
+    trainer = Trainer(
+        TrainerConfig(total_steps=n_steps, checkpoint_every=10**9,
+                      checkpoint_dir=str(ckpt_dir), keep_checkpoints=1,
+                      log_every=1),
+        lambda p, b: lm_loss(p, cfg, b, telemetry=True), None,
+        OptimizerConfig(), data)
+    # phase 10 times the closing save of a state of this size; skip it
+    trainer.ckpt.save = lambda *a, **kw: None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    state = trainer.run(torch.Generator(device="cuda").manual_seed(0),
+                        start_state=state)
+    launches = tuple(k.launches for k in kernels)
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    hist = trainer.metrics_history
+    times = [m["step_time"] for m in hist]
+    p50 = statistics.median(times)
+    tkeys = sorted(k for k in hist[-1] if k.startswith("telemetry_moe_"))
+    log(f"[sparse-lm] {card}: Trainer steps 0-{n_steps - 1} (telemetry "
+        f"on, no closing save): step p50 {p50 * 1e3:.2f} ms (min "
+        f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = "
+        f"{batch * seq / p50:.1f} tokens/s; loss {hist[0]['loss']:.4f} -> "
+        f"{hist[-1]['loss']:.4f}, aux {hist[-1]['aux_loss']:.5f}; peak "
+        f"device memory {peak / 2**30:.3f} GiB; K1-K6 launches "
+        f"{launches} (must be 0); last step's MoE telemetry (means over "
+        f"the {n_moe} layers) "
+        + " ".join(f"{k[len('telemetry_moe_l0_'):]}={hist[-1][k]:.5g}"
+                   for k in tkeys))
+    if any(launches):
+        raise AssertionError(f"a Soft-MoE kernel ran in the sparse LM step: "
+                             f"{launches}")
+    if not all(math.isfinite(m["loss"]) for m in hist) or not tkeys or \
+            not all(math.isfinite(m[k]) for m in hist for k in tkeys):
+        raise AssertionError("non-finite loss or telemetry, or none logged")
+
+    # Where the time goes: one profiled step with telemetry on
+    from repro_torch.train import make_train_step
+
+    step = make_train_step(lambda p, b: lm_loss(p, cfg, b, telemetry=True),
+                           OptimizerConfig())
+    state, pwall, busy = profile_step(torch, step, state,
+                                      data.batch(n_steps),
+                                      f"sparse lm train {card}")
+    log(f"[sparse-lm] {card}: sparse vs soft at one width (batch {batch} x "
+        f"{seq}, telemetry on): step p50 {p50 * 1e3:.2f} ms vs "
+        f"{soft['p50'] * 1e3:.2f} ms (+soft, phase 10), "
+        f"{batch * seq / p50:.1f} vs {batch * seq / soft['p50']:.1f} "
+        f"tokens/s, peak {peak / 2**30:.3f} vs {soft['peak'] / 2**30:.3f} "
+        f"GiB, device busy {busy / pwall:.3f} vs {soft['busy']:.3f} of a "
+        f"profiled step's wall; params {n_params} vs {soft['n_params']}")
+    del state, trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: MoE LMs served with per-row routing and serving telemetry
+# ---------------------------------------------------------------------------
+
+
+def moe_serve_requests(np, vocab, seed=2):
+    """Phase 7's request set cut to fit the phase: 8 prompts of 16..256
+    tokens (one per slot), 16 new tokens each."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(1, vocab, size=int(n)).tolist()
+            for n in rng.randint(16, 257, size=8)]
+
+
+def phase_moe_serve(torch, card):
+    """The paged engine serves granite-moe-1b-a400m (Tokens Choice) and
+    its +soft twin at full width with telemetry on: K7 on every decode
+    step, per-row dropless routing, the batch-variance probe."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_decode_attend
+    from repro_torch.kernels.soft_moe_kernels import (
+        combine_apply,
+        combine_online,
+        routing_fwd,
+        routing_health,
+    )
+    from repro_torch.models import lm_init
+    from repro_torch.serve import ServeEngine, batch_variance_probe
+
+    soft_kernels = (routing_fwd, combine_apply, combine_online,
+                    routing_health)
+    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda")
+    max_new = 16
+    probes = {}
+    for name in ("granite-moe-1b-a400m", "granite-moe-1b-a400m+soft"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(name)
+        params = lm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+        prompts = moe_serve_requests(np, cfg.vocab_size)
+        warm = ServeEngine(cfg, params, telemetry=True, **geo)
+        run_engine(torch, warm, prompts[1:3], 4)
+        del warm
+        runs = {}
+        for telemetry in (True, False):
+            eng = ServeEngine(cfg, params, telemetry=telemetry, **geo)
+            paged_decode_attend.launches = 0
+            for k in soft_kernels:
+                k.launches = 0
+            reqs, wall, decode_s = run_engine(torch, eng, prompts, max_new)
+            runs[telemetry] = (eng, reqs, wall, decode_s,
+                               paged_decode_attend.launches,
+                               tuple(k.launches for k in soft_kernels))
+        eng, reqs, wall, decode_s, k7, soft_l = runs[True]
+        done = all(r.done and r.finish_reason == "length"
+                   for r in reqs)
+        snap = eng.telemetry_snapshot()
+        flat = snap.get("decode", {})
+        key = ("router_entropy" if cfg.moe.variant == "tokens_choice"
+               else "dispatch_entropy")
+        missing = [i for i in cfg.moe_layer_indices()
+                   if f"moe_l{i}_{key}" not in flat]
+        finite = all(math.isfinite(v) for ph in snap.values()
+                     for v in ph.values())
+        dropped = [flat.get(f"moe_l{i}_dropped_fraction", 0.0)
+                   for i in cfg.moe_layer_indices()]
+        same = [r.out for r in reqs] == [r.out for r in runs[False][1]]
+        n_tok = sum(len(r.out) for r in reqs)
+        on50 = statistics.median(decode_s) * 1e3
+        off50 = statistics.median(runs[False][3]) * 1e3
+        log(f"[moe-serve] {name} ({cfg.moe.variant}): {len(reqs)} requests "
+            f"done={done}, {eng.decode_steps} decode steps; K7 launches {k7} "
+            f"(decode_steps x "
+            f"{cfg.num_layers} = {eng.decode_steps * cfg.num_layers}), "
+            f"K1/K2/K3/K6 {soft_l} (0: serving runs the MoE einsum path); "
+            f"telemetry keys {len(flat)} per decode call, finite {finite}, "
+            f"MoE layers missing {key}: {missing}; decode "
+            f"dropped_fraction max {max(dropped):.3g}; greedy tokens with "
+            f"telemetry on == off: {same}")
+        log(f"[moe-serve] {card}: {name}: telemetry on {n_tok / wall:.1f} "
+            f"tok/s, decode step p50 {on50:.2f} ms; off "
+            f"{n_tok / runs[False][2]:.1f} tok/s, p50 {off50:.2f} ms "
+            f"(on/off {on50 / off50:.4f}); first MoE layer's decode stats "
+            + " ".join(f"{k}={v:.5g}" for k, v in sorted(flat.items())
+                       if k.startswith(f"moe_l{cfg.moe_layer_indices()[0]}_")))
+        if not done or k7 != eng.decode_steps * cfg.num_layers or k7 == 0:
+            raise AssertionError("MoE serving: unfinished requests or K7 "
+                                 "launches != decode_steps x layers")
+        if any(soft_l) or missing or not finite or not same or \
+                any(v != 0.0 for v in dropped):
+            raise AssertionError("MoE serving telemetry or parity failed")
+        del runs, eng, reqs
+        probes[name] = batch_variance_probe(cfg, params, [1, 2, 3, 4],
+                                            batch_size=4, max_new_tokens=8,
+                                            max_len=64)
+        if cfg.moe.variant == "tokens_choice":
+            hatch = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, group_size=4, capacity_factor=0.5, bpr=True,
+                batch_coupled=True))
+            probes["hatch"] = batch_variance_probe(
+                hatch, params, [1, 2, 3, 4], batch_size=4, max_new_tokens=8,
+                max_len=64)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    qcfg = get_config("qwen2-0.5b")
+    qparams = lm_init(torch.Generator(device="cuda").manual_seed(0), qcfg)
+    probes["qwen2-0.5b"] = batch_variance_probe(
+        qcfg, qparams, [1, 2, 3, 4], batch_size=4, max_new_tokens=8,
+        max_len=64)
+    del qparams
+    for name, res in probes.items():
+        top = sorted(res["per_stat"].items(), key=lambda kv: -kv[1])[:3]
+        log(f"[moe-serve] {card}: batch_variance_probe {name} (batch 4): "
+            f"divergence {res['divergence']:.3e} over "
+            f"{res['steps_compared']} steps; largest "
+            + " ".join(f"{k}={v:.3e}" for k, v in top))
+    if any(r["steps_compared"] == 0 for r in probes.values()):
+        raise AssertionError("a probe compared no decode step")
+    if not probes["hatch"]["divergence"] > \
+            probes["granite-moe-1b-a400m"]["divergence"]:
+        raise AssertionError("the escape hatch reads no more than the "
+                             "default sparse config")
 
 
 def _get(tree, path):
@@ -2593,8 +2995,12 @@ def main():
         kern.update(phase_routing_health(torch))
         launches = phase_serve(torch, card)
         launches.update(phase_vit(torch, card))
+        phase_sparse_vit(torch, card)
         launches.update(phase_train(torch, card))
-        launches.update(phase_lm_train(torch, card))
+        lm_launches, soft_summary = phase_lm_train(torch, card)
+        launches.update(lm_launches)
+        phase_sparse_lm_train(torch, card, soft_summary)
+        phase_moe_serve(torch, card)
     except Exception as e:  # noqa: BLE001 — report which phase failed
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr,
               flush=True)

@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense GQA and Soft-MoE families, counterpart of
-``repro/models/lm.py``; its transformer block also carries the Soft-MoE
+"""Decoder-only LM, dense GQA and MoE families, counterpart of
+``repro/models/lm.py``; its transformer block also carries the MoE
 layers of the ViT (``models/vit.py``).
 
 Params hold one dict per layer under ``"layers"``; the JAX package stacks
@@ -12,8 +12,10 @@ segment is stacked on a leading ``(count,)`` axis and keyed by the
 segment's first layer; otherwise (serving, or ``scan_layers`` off, as
 ``reduced`` sets it) each layer's telemetry is keyed by its index, as
 the JAX unrolled path keys it. SSM, MLA, frontend and encoder-decoder
-models wait for later slices (``check_supported``); MoE layers run the
-``soft`` variant (``core.moe_init`` refuses the others).
+models wait for later slices (``check_supported``). MoE layers run any
+variant of ``core.moe_apply``: Soft MoE, the sparse baselines (whose
+routing scope follows ``mode``: coupled groups in train mode, per-row
+dropless routing when serving) and the ablations.
 """
 from __future__ import annotations
 
@@ -80,8 +82,9 @@ def block_apply(params, cfg, x, *, is_moe: bool = False,
                 block_tables=None, paged_kernel: bool = False,
                 telemetry: bool = False):
     """Returns (y, cache, aux), or (y, cache, aux, telem) with
-    ``telemetry``. ``is_moe`` runs the block's MLP as a Soft-MoE layer
-    (``use_kernel`` routes it through the routing and combine kernels);
+    ``telemetry``. ``is_moe`` runs the block's MLP as a MoE layer of the
+    config's variant (``use_kernel`` routes a Soft-MoE layer through the
+    routing and combine kernels);
     aux is its auxiliary loss (the float 0.0 otherwise, so a dense block
     launches nothing for it). ``block_tables`` (B, blocks_per_row)
     switches the attention cache to the paged block-pool layout;

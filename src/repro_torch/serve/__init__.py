@@ -8,10 +8,26 @@ cache backend.
   sampling      — batched per-request sampler (greedy/temp/top-k/top-p)
   scheduler     — host-side admission queue + slot state machine
   engine        — ServeEngine
-  telemetry     — host-side flattening of the model-interior telemetry
+  telemetry     — model-interior telemetry consumers: flattening, the
+                  engine's aggregator and the batch-variance probe
 """
-from .block_manager import BlockManager, PagedBackend  # noqa: F401
+from .block_manager import (  # noqa: F401
+    BlockManager,
+    PagedBackend,
+    init_paged_cache,
+)
+from .cache_pool import CacheBackend  # noqa: F401
 from .engine import ServeEngine  # noqa: F401
 from .prefix_cache import RadixPrefixCache  # noqa: F401
+from .programs import (  # noqa: F401
+    make_decode_step_paged,
+    make_prefill_chunk_paged,
+)
 from .sampling import GREEDY, SamplingParams  # noqa: F401
 from .scheduler import QueueFull, Request, Scheduler  # noqa: F401
+from .telemetry import (  # noqa: F401
+    TelemetryAggregator,
+    batch_variance_probe,
+    flatten_telemetry,
+    telemetry_rows,
+)

@@ -122,7 +122,7 @@ class PagedBackend(CacheBackend):
                  dtype=torch.bfloat16, block_size: int = 16,
                  num_blocks: Optional[int] = None,
                  prefix_cache: bool = True, use_kernel: bool = True,
-                 device="cuda"):
+                 telemetry: bool = False, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_slots = num_slots
@@ -147,8 +147,14 @@ class PagedBackend(CacheBackend):
         # footprint; tree-retained blocks are reclaimable cache).
         self.live_block_hw = 0
         self.use_kernel = use_kernel
-        self._prefill_chunk = make_prefill_chunk_paged(cfg)
-        self._decode = make_decode_step_paged(cfg, use_kernel=use_kernel)
+        # With telemetry every program call stashes (phase, telemetry
+        # tree) on `last_telemetry` for the engine to drain.
+        self.telemetry = telemetry
+        self.last_telemetry = None
+        self._prefill_chunk = make_prefill_chunk_paged(cfg,
+                                                       telemetry=telemetry)
+        self._decode = make_decode_step_paged(cfg, use_kernel=use_kernel,
+                                              telemetry=telemetry)
 
     # -- CacheBackend ------------------------------------------------------
 
@@ -203,11 +209,15 @@ class PagedBackend(CacheBackend):
     def prefill_chunk(self, params, buf, slot: int, toks, poss):
         dev = self.device
         table = torch.as_tensor(self.tables[slot: slot + 1], device=dev)
-        return self._prefill_chunk(
+        out = self._prefill_chunk(
             params, self.cache, buf, slot, table,
             torch.as_tensor([toks], dtype=torch.long, device=dev),
             torch.as_tensor([poss], dtype=torch.int32, device=dev),
         )
+        if self.telemetry:
+            buf, self.last_telemetry = out[0], ("prefill", out[1])
+            return buf
+        return out
 
     def prefill_finished(self, entry):
         """Publish the request's full prompt blocks into the radix tree
@@ -250,7 +260,11 @@ class PagedBackend(CacheBackend):
         if self._tables_dev is None:
             self._tables_dev = torch.as_tensor(self.tables,
                                                device=self.device)
-        return self._decode(params, toks, pos, self._tables_dev, self.cache)
+        out = self._decode(params, toks, pos, self._tables_dev, self.cache)
+        if self.telemetry:
+            self.last_telemetry = ("decode", out[1])
+            return out[0]
+        return out
 
     def retire(self, slot: int):
         row = self.tables[slot]

@@ -14,6 +14,11 @@ class CacheBackend:
 
     num_free_slots: int
     max_chunk: int
+    # model-interior telemetry: a backend built with telemetry=True stashes
+    # the latest (phase, telemetry tree) here after every prefill and
+    # decode call; the engine drains it
+    telemetry: bool = False
+    last_telemetry = None
 
     def accepts(self, prompt_len: int, max_new: int) -> bool:
         """Can this request EVER fit (submit-time validation)?"""

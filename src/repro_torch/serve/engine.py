@@ -7,12 +7,15 @@ steps, every decode tick advances ALL live rows in one batched model
 call, and a row retires (its memory released, the next request
 admitted) the tick it samples EOS or exhausts its budget. Decode
 attention runs the paged decode-attention kernel on CUDA
-(``use_kernel=True``, the default) or the gather path.
+(``use_kernel=True``, the default) or the gather path. MoE LMs serve
+with per-row dropless routing (the sparse variants' serving modes) on
+the MoE einsum path, as in the reference; ``telemetry=True`` collects
+the model-interior telemetry of every call (``serve/telemetry.py``).
 
-Not ported yet: MoE LMs, the contiguous backend, speculative decoding,
-span tracing, the flight recorder and model-interior telemetry (asking
-for them raises ``NotImplementedError``), and publishing generated
-tokens into the radix tree (the JAX engine's ``cache_generated``).
+Not ported yet: the contiguous backend, speculative decoding, span
+tracing and the flight recorder (asking for them raises
+``NotImplementedError``), and publishing generated tokens into the
+radix tree (the JAX engine's ``cache_generated``).
 """
 from __future__ import annotations
 
@@ -27,18 +30,26 @@ from ..models.lm import check_supported
 from .block_manager import PagedBackend
 from .sampling import GREEDY, SamplingParams, sample_tokens_checked
 from .scheduler import Request, Scheduler
+from .telemetry import TelemetryAggregator
+
+# MoE weights the reference reads in f32 whatever the compute dtype: the
+# sparse router and Soft MoE's phi and scale (their logits are f32)
+_ROUTING_WEIGHTS = ("router", "phi", "scale")
 
 
 def serving_params(params, cfg):
     """Params as the serving programs use them: every weight cast once to
     the compute dtype, except the embedding tables, which the unembed
-    reads in f32. The layers cast each weight to the activation dtype at
-    every use, so this gives the same numbers without the per-step
-    casts."""
+    reads in f32, and a MoE layer's routing weights (``router``, ``phi``,
+    ``scale``), kept in their stored dtype because the routing logits are
+    computed from them in f32. The layers cast every other weight to the
+    activation dtype at each use, so this gives the same numbers without
+    the per-step casts."""
     dt = dtype_of(cfg.dtype)
 
-    def cast(tree):
-        return {k: cast(v) if isinstance(v, dict) else v.to(dt)
+    def cast(tree, in_moe=False):
+        return {k: cast(v, k == "moe") if isinstance(v, dict)
+                else v if in_moe and k in _ROUTING_WEIGHTS else v.to(dt)
                 for k, v in tree.items()}
 
     out = dict(params)
@@ -59,6 +70,9 @@ class ServeEngine:
     radix tree, ``use_kernel`` picks the paged decode-attention kernel
     (default) or the gather path. ``device`` is where the model and the
     pools live (``"cuda"`` unless the caller asks for ``"cpu"``).
+    ``telemetry=True`` drains each call's telemetry tree into
+    ``self.telemetry`` (a ``TelemetryAggregator``: ``tick`` holds the
+    current tick's flat stats per phase) and ``telemetry_snapshot()``.
 
     ``max_queue`` bounds the admission queue (`submit` raises
     `scheduler.QueueFull`); the tick loop enforces per-request deadlines,
@@ -81,14 +95,10 @@ class ServeEngine:
             raise NotImplementedError(
                 f"backend {backend!r} not ported; use backend='paged'")
         for name, on in (("spec", spec is not None), ("trace", trace),
-                         ("flight_recorder", flight_recorder),
-                         ("telemetry", telemetry)):
+                         ("flight_recorder", flight_recorder)):
             if on:
                 raise NotImplementedError(f"{name} is not ported yet")
         check_supported(cfg)
-        if cfg.moe_layer_indices():
-            raise NotImplementedError(
-                f"{cfg.name}: serving MoE LMs is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = serving_params(params, cfg)
@@ -100,8 +110,10 @@ class ServeEngine:
             cfg, batch_size, max_len, dtype_of(cache_dtype),
             block_size=block_size, num_blocks=num_blocks,
             prefix_cache=prefix_cache, use_kernel=use_kernel,
-            device=self.device,
+            telemetry=telemetry, device=self.device,
         )
+        # drains the backend's per-call (phase, tree) stash each phase
+        self.telemetry = TelemetryAggregator() if telemetry else None
         chunk = prefill_chunk or min(32, self.backend.max_chunk)
         if chunk > self.backend.max_chunk:
             raise ValueError(f"prefill_chunk {chunk} exceeds backend limit "
@@ -294,9 +306,15 @@ class ServeEngine:
         """One engine tick: expire deadlines, admit, (maybe) one prefill
         chunk, one batched sample+decode pass. Returns tokens emitted."""
         self._expire_deadlines()
+        if self.telemetry is not None:
+            self.telemetry.begin_tick()
         self._admit()
         self._do_prefill_chunk()
+        if self.telemetry is not None:
+            self.telemetry.drain(self.backend)
         emitted = self._do_decode()
+        if self.telemetry is not None:
+            self.telemetry.drain(self.backend)
         self.ticks += 1
         return emitted
 
@@ -309,3 +327,12 @@ class ServeEngine:
 
     def peak_cache_bytes(self) -> int:
         return self.backend.peak_cache_bytes()
+
+    def telemetry_snapshot(self) -> dict:
+        """Latest flat model-interior stats per phase (empty when
+        telemetry is off): ``{"decode": {"moe_l2_router_entropy": ...,
+        "logits_max_abs_logit": ...}, "prefill": {...}}``."""
+        if self.telemetry is None:
+            return {}
+        return {phase: dict(flat)
+                for phase, flat in self.telemetry.latest.items()}

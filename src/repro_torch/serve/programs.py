@@ -12,36 +12,43 @@ from ..layers.attention import copy_kv_blocks, reset_block_pos
 from ..models import lm_apply
 
 
-def make_prefill_chunk_paged(cfg):
+def make_prefill_chunk_paged(cfg, telemetry: bool = False):
     """Chunked prefill through a block table: (params, cache, logits_buf,
     slot, table(1,nb), tokens(1,C), positions(1,C)) -> logits_buf, with
-    row ``slot`` of the buffer set to the chunk's last-position logits.
-    Attention writes scatter into the slot's table blocks."""
+    row ``slot`` of the buffer set to the chunk's last-position logits,
+    or (logits_buf, telem) with ``telemetry``: ``lm_apply``'s telemetry
+    tree of the call. Attention writes scatter into the slot's table
+    blocks."""
 
     def prefill_chunk(params, cache, buf, slot, table, tokens, positions):
-        logits, _, _ = lm_apply(
+        out = lm_apply(
             params, cfg, tokens, positions=positions, cache=cache,
             mode="decode", last_only=True, block_tables=table,
+            telemetry=telemetry,
         )
-        buf[slot] = logits[0, -1].to(buf.dtype)
-        return buf
+        buf[slot] = out[0][0, -1].to(buf.dtype)
+        return (buf, out[3]) if telemetry else buf
 
     return prefill_chunk
 
 
-def make_decode_step_paged(cfg, use_kernel: bool = False):
+def make_decode_step_paged(cfg, use_kernel: bool = False,
+                           telemetry: bool = False):
     """(params, tokens(B,1), pos(B,), tables(B,nb), cache) ->
-    logits(B,1,V). Rows with pos<0 are inactive; their (all-null) table
-    rows contribute only masked-out keys. ``use_kernel`` routes attention
-    through the paged decode-attention kernel, which reads the pool in
-    place; the gather path is its oracle."""
+    logits(B,1,V), or (logits, telem) with ``telemetry``. Rows with
+    pos<0 are inactive; their (all-null) table rows contribute only
+    masked-out keys. ``use_kernel`` routes attention through the paged
+    decode-attention kernel, which reads the pool in place; the gather
+    path is its oracle. MoE layers run their einsum path, as in the
+    reference (its programs never pass the Soft-MoE ``use_kernel``)."""
 
     def decode(params, tokens, pos, tables, cache):
-        logits, _, _ = lm_apply(
+        out = lm_apply(
             params, cfg, tokens, positions=pos[:, None], cache=cache,
             mode="decode", block_tables=tables, paged_kernel=use_kernel,
+            telemetry=telemetry,
         )
-        return logits
+        return (out[0], out[3]) if telemetry else out[0]
 
     return decode
 

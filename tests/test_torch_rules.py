@@ -39,7 +39,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.build, repro_torch.kernels.ops, "
             "repro_torch.models, repro_torch.core, repro_torch.train, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
-            "repro_torch.core.inspection, repro_torch.serve.telemetry; "
+            "repro_torch.core.inspection, repro_torch.serve.telemetry, "
+            "repro_torch.core.sparse_moe, repro_torch.core.ablations; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -104,27 +105,26 @@ def test_unported_engine_options_raise():
 
     cfg = reduced(get_config("qwen2-0.5b"))
     params = lm_init(torch.Generator().manual_seed(0), cfg)
-    for kw in ({"spec": object()}, {"trace": True}, {"telemetry": True},
+    for kw in ({"spec": object()}, {"trace": True},
                {"flight_recorder": 4}, {"backend": "contiguous"}):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, params, batch_size=2, max_len=32, device="cpu",
                         **kw)
-    # the sparse-MoE LMs are not ported; Soft-MoE LMs train, but the
-    # engine does not serve them yet
+    # deepseek-v2-lite needs MLA, which is not ported: neither lm_init nor
+    # the engine takes it
+    deepseek = reduced(get_config("deepseek-v2-lite-16b"))
     with pytest.raises(NotImplementedError, match="not ported"):
-        lm_init(torch.Generator(), reduced(get_config("granite-moe-1b-a400m")))
-    soft = reduced(get_config("qwen2-0.5b+soft"))
-    soft_params = lm_init(torch.Generator().manual_seed(0), soft)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ServeEngine(soft, soft_params, batch_size=2, max_len=32,
+        lm_init(torch.Generator(), deepseek)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ServeEngine(deepseek, params, batch_size=2, max_len=32,
                     device="cpu")
 
 
 def test_unported_moe_options_raise():
-    """The sparse variants, the ablations and the sparse-MoE LMs are not
-    ported, and a raw kernel has no backward of its own (the autograd
-    Functions of kernels/ops.py carry the gradient; the routing-health
-    kernel carries none): each refuses, never runs half."""
+    """An unknown MoE variant and deepseek's MLA LM (not ported) refuse,
+    and a raw kernel has no backward of its own (the autograd Functions
+    of kernels/ops.py carry the gradient; the routing-health kernel
+    carries none): each refuses, never runs half."""
     from repro_torch.configs import MoEConfig, get_config, reduced
     from repro_torch.core import moe_apply, moe_init
     from repro_torch.kernels.soft_moe_kernels import (
@@ -139,15 +139,13 @@ def test_unported_moe_options_raise():
     cfg = MoEConfig(variant="soft", num_experts=4, expert_d_ff=8)
     params = moe_init(gen, 16, cfg)
     x = torch.randn(2, 5, 16)
-    for variant in ("tokens_choice", "experts_choice", "identity",
-                    "uniform", "soft_uniform", "uniform_soft"):
-        other = MoEConfig(variant=variant, num_experts=4, expert_d_ff=8)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            moe_init(gen, 16, other)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            moe_apply(params, other, x)
+    other = MoEConfig(variant="top_2_switch", num_experts=4, expert_d_ff=8)
+    with pytest.raises(ValueError, match="unknown MoE variant"):
+        moe_init(gen, 16, other)
+    with pytest.raises(ValueError, match="unknown MoE variant"):
+        moe_apply(params, other, x)
     with pytest.raises(NotImplementedError, match="not ported"):
-        lm_init(torch.Generator(), reduced(get_config("granite-moe-1b-a400m")))
+        lm_init(torch.Generator(), reduced(get_config("deepseek-v2-lite-16b")))
 
     # A kernel wrapper handed non-CPU tensors that need a gradient refuses
     # before anything else (differentiate through kernels/ops.py instead);
