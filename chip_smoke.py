@@ -20,7 +20,8 @@ prints no result line):
    that malformed operands raise, and times the kernel (split pass and
    merge), its plain version and one PyTorch library call at the serving
    path's shapes, with one call's device time by launch, beside its bound
-   and its design's (the live bytes plus the partials written and read).
+   and its design's (the live bytes plus the partials written and read);
+   then once more at pixtral-12b's serving shape (H=32, G=8, D=128).
 4. soft-moe kernels: holds K1 (routing), K2 (combine from K1's stats)
    and K3 (online combine) against their plain PyTorch versions on the
    card at the Soft-MoE B/16 layer's shapes and at ragged ones (a token
@@ -146,7 +147,39 @@ prints no result line):
    off; decode step p50 and tok/s on and off; ``batch_variance_probe``
    (batch 4) on both granite configs, qwen2-0.5b and the sparse config
    through the ``batch_coupled`` hatch, which must read more than the
-   default sparse config (the card's readings are recorded, not bounded).
+   default sparse config (the card's readings are recorded, not bounded);
+   and its bisection on the sparse config (``batch_variance_bisect``):
+   the target row alone and co-batched at its first decode step, every
+   layer's intermediates compared in call order, the greedy tokens of
+   both runs, and the differing ops alone at the step's shapes.
+13. mla serve: full-width, full-depth deepseek-v2-lite-16b (MLA, layer 0
+   dense, 26 Tokens Choice layers of top-6 of 64 experts + 2 shared;
+   random weights drawn layer by layer and cast to the serving dtypes as
+   drawn, ``serving_weights``, checked bitwise against
+   ``serving_params(lm_init(...))`` at reduced size): one MLA layer in f32
+   on the input the model feeds it, card against host CPU within 1e-5
+   (no cache, a paged chunked prefill, decode steps, the latent pool);
+   then the paged engine (``telemetry=True``, phase 12's geometry and
+   trace): every request finishes, K7 and K1-K6 launch 0 times (MLA
+   decode gathers, as in the reference), dropped 0 in every MoE layer,
+   tokens with telemetry on == off; decode p50, tok/s and peak memory;
+   ``batch_variance_probe`` (batch 4, recorded) and its bisection.
+14. vlm: full-width, full-depth pixtral-12b (weights as in phase 13):
+   ``lm_apply(embeds=)`` on 2 rows of 256 N(0, 1) patch embeddings + 256
+   tokens under ``torch.inference_mode()``: finite logits of shape (2,
+   512, 131072), forward p50 and peak memory; then text-only serving over
+   phase 12's trace, K7 launches = decode steps x 40, and the kernel
+   engine teacher forced against a gather-path engine (bound 5e-2).
+15. long lm train: deepseek-v2-lite-16b at full width with the depth cut
+   to 4 layers (layer 0 dense, 1-3 Tokens Choice as published; random
+   f32 weights, bf16 compute, f32 AdamW moments) on batch 2 x 4096 of
+   ``SyntheticLM``, where every MLA layer takes the chunked attention
+   path: at step 0 the loss on the chunked path against the dense path
+   (``layers.attention._CHUNKED_THRESHOLD`` raised in this script) within
+   1e-3; then 5 Trainer steps through ``lm_loss(telemetry=True)`` (no
+   closing save): step p50, tokens/s, peak memory, and the chunked
+   attends counted (4 layers x 2 a step: the forward and the remat
+   recompute).
 
 The lines before the last carry the numbers: the card line as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -426,7 +459,7 @@ def phase_kernels(torch):
         ("window global f32", 8, 14, 2, 64, 16, torch.float32, 1024, True,
          None, lens8),
     ]
-    main = {}
+    main = pixtral = {}
     for i, (label, B, H, G, D, bs, dt, window, is_global, kcfg, lens) in \
             enumerate(cases):
         max_tokens = 2112 if bs == 192 else 2048
@@ -466,6 +499,8 @@ def phase_kernels(torch):
             raise AssertionError(f"paged_decode_attend {label} failed")
         if label == "slice bf16":
             main = {"args": args, "err": err}
+        elif label == "H32 G8 D128 bf16":
+            pixtral = {"args": args}
 
     # No fallback: malformed operands raise and launch nothing.
     q, k, v, pos, tables, qpos = main["args"]
@@ -491,11 +526,33 @@ def phase_kernels(torch):
     if paged_decode_attend.launches != before:
         raise AssertionError("a malformed call launched the kernel")
 
-    # Times at the serving path's shapes (B=8, H=14, G=2, D=64, block 16).
+    # Times at the serving path's shapes (B=8, H=14, G=2, D=64, block 16),
+    # then at pixtral-12b's (H=32, G=8, D=128), which phase 13 serves.
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    kernel_ms = time_ms(torch, lambda: paged_decode_attend(*main["args"]),
+    row = paged_times(torch, main["args"], flush,
+                      "B=8 H=14 G=2 D=64 block 16, bf16")
+    launch_times(torch, lambda: paged_decode_attend(*main["args"]),
+                 "B=8 H=14 G=2 D=64 block 16 bf16", "paged_decode_attend",
+                 tag="kernel")
+    paged_times(torch, pixtral["args"], flush,
+                "pixtral-12b's serving shape B=8 H=32 G=8 D=128 block 16, "
+                "bf16")
+    return {"paged_decode_attend": {"max_abs_err": main["err"], **row}}
+
+
+def paged_times(torch, args, flush, shape):
+    """K7 on ``args`` timed beside its plain version, one SDPA call over
+    the gathered view (the library yardstick), its bound and its split
+    design's bound; logs them and returns the kernels-line numbers."""
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attend,
+        paged_decode_attend_ref,
+    )
+
+    q, k, v, pos, tables, qpos = args
+    kernel_ms = time_ms(torch, lambda: paged_decode_attend(*args),
                         flush=flush)
-    plain_ms = time_ms(torch, lambda: paged_decode_attend_ref(*main["args"]),
+    plain_ms = time_ms(torch, lambda: paged_decode_attend_ref(*args),
                        reps=5, flush=flush)
     B, H, D = q.shape
     G = k.shape[2]
@@ -517,20 +574,15 @@ def phase_kernels(torch):
     part_bytes = B * n_split * H * (D + 2) * 4
     design_ms, design_by = paged_bound_ms(q, k, tables, qpos, bs,
                                           2 * part_bytes)
-    log(f"[kernel] paged_decode_attend timing (B=8 H=14 G=2 D=64 block 16, "
-        f"bf16, L2 flushed): kernel_ms={kernel_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms(sdpa with enable_gqa over the "
-        f"gathered view)={library_ms:.4f} bound={bound_ms * 1e3:.3f} us "
-        f"({bound_by}); design bound={design_ms * 1e3:.3f} us "
-        f"({design_by}: with {n_split} splits' partials, "
-        f"{part_bytes / 1e6:.3f} MB, written and read)")
-    launch_times(torch, lambda: paged_decode_attend(*main["args"]),
-                 "B=8 H=14 G=2 D=64 block 16 bf16", "paged_decode_attend",
-                 tag="kernel")
-    return {"paged_decode_attend": {
-        "max_abs_err": main["err"], "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-    }}
+    log(f"[kernel] paged_decode_attend timing ({shape}, L2 flushed): "
+        f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms(sdpa with enable_gqa over the gathered view)="
+        f"{library_ms:.4f} bound={bound_ms * 1e3:.3f} us ({bound_by}); "
+        f"design bound={design_ms * 1e3:.3f} us ({design_by}: with "
+        f"{n_split} splits' partials, {part_bytes / 1e6:.3f} MB, written "
+        f"and read)")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1651,7 +1703,8 @@ def teacher_forced(torch, eng, oracle, prompts, max_new):
     both engines sample the same tokens and keep the same schedule: every
     live row is compared at every tick, late in each request too.
 
-    Returns per-tick (slots, max abs diff, greedy tokens that agree)."""
+    Returns per-tick (slots, max abs diff, greedy tokens that agree, max
+    abs logit of the gather engine's rows)."""
     from repro_torch.serve import Request
 
     snap = {}
@@ -1671,7 +1724,8 @@ def teacher_forced(torch, eng, oracle, prompts, max_new):
         if slots:
             mine, ref = snap["logits"][slots], oracle._logits[slots]
             agree = int((mine.argmax(-1) == ref.argmax(-1)).sum())
-            ticks.append((slots, (mine - ref).abs().max().item(), agree))
+            ticks.append((slots, (mine - ref).abs().max().item(), agree,
+                          ref.abs().max().item()))
         oracle._logits = snap["logits"]
         return oracle_decode()
 
@@ -1710,6 +1764,28 @@ def profile_ticks(torch, eng, n):
     rows = sorted(((k, us, c) for k, (us, c) in per.items()),
                   key=lambda r: -r[1])
     return wall, rows
+
+
+def tick_profile(torch, eng, n, label):
+    """Trace ``n`` ticks of ``eng`` and log the window's wall time, the
+    device's busy share, the device time by kernel group and the top
+    kernels; returns the busy share."""
+    pwall, prows = profile_ticks(torch, eng, n)
+    busy = sum(us for _, us, _ in prows) / 1e6
+    log(f"[profile] {label} in {pwall * 1e3:.1f} ms wall under the "
+        f"profiler; device busy {busy * 1e3:.1f} ms = {busy / pwall:.3f} of "
+        f"wall")
+    kinds = {}
+    for name, us, cnt in prows:
+        k = kernel_kind(name)
+        kinds[k] = (kinds.get(k, (0.0, 0))[0] + us,
+                    kinds.get(k, (0.0, 0))[1] + cnt)
+    for k, (us, cnt) in sorted(kinds.items(), key=lambda r: -r[1][0]):
+        log(f"[profile]   {k}: {us / 1e3:.2f} ms in {cnt} launches "
+            f"({us / 1e6 / pwall:.3f} of wall)")
+    for name, us, cnt in prows[:8]:
+        log(f"[profile]   top: {us / 1e3:.2f} ms x{cnt} {name[:90]}")
+    return busy / pwall
 
 
 def kernel_kind(name):
@@ -1849,21 +1925,8 @@ def phase_serve(torch, card):
         prof_eng.submit(Request(prompt=list(p), max_new_tokens=max_new))
     for _ in range(60):
         prof_eng.step()
-    pwall, prows = profile_ticks(torch, prof_eng, 10)
-    busy = sum(us for _, us, _ in prows) / 1e6
-    log(f"[profile] {card}: 10 ticks (ticks 61-70 of the trace) in "
-        f"{pwall * 1e3:.1f} ms wall under the profiler; device busy "
-        f"{busy * 1e3:.1f} ms = {busy / pwall:.3f} of wall")
-    kinds = {}
-    for name, us, cnt in prows:
-        k = kernel_kind(name)
-        kinds[k] = (kinds.get(k, (0.0, 0))[0] + us,
-                    kinds.get(k, (0.0, 0))[1] + cnt)
-    for k, (us, cnt) in sorted(kinds.items(), key=lambda r: -r[1][0]):
-        log(f"[profile]   {k}: {us / 1e3:.2f} ms in {cnt} launches "
-            f"({us / 1e6 / pwall:.3f} of wall)")
-    for name, us, cnt in prows[:8]:
-        log(f"[profile]   top: {us / 1e3:.2f} ms x{cnt} {name[:90]}")
+    tick_profile(torch, prof_eng, 10, f"{card}: 10 ticks (ticks 61-70 of "
+                 f"the trace)")
     del prof_eng
 
     # Kernel engine against the gather engine (use_kernel=False), teacher
@@ -1881,12 +1944,13 @@ def phase_serve(torch, card):
                                 oracle, trace, n_new)
         odecode_s += times
         del oracle
-    diffs = [d for _, d, _ in ticks]
-    rows = sum(len(sl) for sl, _, _ in ticks)
-    agree = sum(a for _, _, a in ticks)
-    full = sum(len(sl) == geo["batch_size"] for sl, _, _ in ticks)
-    slots_seen = sorted({x for sl, _, _ in ticks for x in sl})
+    diffs = [t[1] for t in ticks]
+    rows = sum(len(t[0]) for t in ticks)
+    agree = sum(t[2] for t in ticks)
+    full = sum(len(t[0]) == geo["batch_size"] for t in ticks)
+    slots_seen = sorted({x for t in ticks for x in t[0]})
     worst = max(range(len(ticks)), key=lambda i: diffs[i])
+    rel = max(d / r for _, d, _, r in ticks)
     log(f"[serve] gather engine (use_kernel=False): decode step p50 "
         f"{statistics.median(odecode_s) * 1e3:.2f} ms")
     log(f"[serve] kernel vs gather engine, teacher forced: {len(ticks)} "
@@ -1896,7 +1960,8 @@ def phase_serve(torch, card):
         f"{', '.join(f'{d:.3e}' for d in diffs[:3])}; "
         f"all passes max_abs_diff={diffs[worst]:.3e} at pass {worst} "
         f"(rows {ticks[worst][0]}), median of the passes' max "
-        f"{statistics.median(diffs):.3e} (tol 5e-2); identical greedy "
+        f"{statistics.median(diffs):.3e} (tol 5e-2); max|diff| / max|ref| "
+        f"of a pass at most {rel:.3e}; identical greedy "
         f"tokens {agree}/{rows} = {agree / rows:.4f}")
     if not all(math.isfinite(d) for d in diffs) or max(diffs) > 5e-2:
         raise AssertionError("kernel engine logits disagree with the gather "
@@ -2954,6 +3019,7 @@ def phase_moe_serve(torch, card):
             probes["hatch"] = batch_variance_probe(
                 hatch, params, [1, 2, 3, 4], batch_size=4, max_new_tokens=8,
                 max_len=64)
+            batch_variance_bisect(torch, cfg, params, card)
         del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2975,6 +3041,659 @@ def phase_moe_serve(torch, card):
             probes["granite-moe-1b-a400m"]["divergence"]:
         raise AssertionError("the escape hatch reads no more than the "
                              "default sparse config")
+
+
+# ---------------------------------------------------------------------------
+# the serving probe's bisection, and weights for the full-width models
+# ---------------------------------------------------------------------------
+
+
+def batch_variance_bisect(torch, cfg, params, card, prompt=(1, 2, 3, 4),
+                          batch=4, max_new=8):
+    """Where ``batch_variance_probe``'s reading comes from: the target row
+    served alone (batch 1) and beside the probe's fillers (batch
+    ``batch``), at the target's first decode step, which has the same
+    inputs in both runs. Every layer's intermediates of the target row
+    are recorded in call order (attention and dense MLP outputs, the
+    router logits, the routed and shared experts' outputs, the MoE
+    layer's output) and compared; then both runs go on to the end and
+    their greedy tokens are compared. Last, the ops that differ are run
+    alone at the step's shapes, row 0 of M rows against M = 1."""
+    from repro_torch.core import sparse_moe
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeEngine
+
+    hooks = ((lm, "attention_apply", "attn", lambda o: o[0]),
+             (lm, "mlp_apply", "mlp", lambda o: o),
+             (lm, "moe_apply", "moe", lambda o: o[0]),
+             (sparse_moe, "_router_logits", "router", lambda o: o),
+             (sparse_moe, "experts_apply", "experts", lambda o: o))
+
+    def run(fillers):
+        eng = ServeEngine(cfg, params, batch_size=1 + len(fillers),
+                          max_len=64, device="cuda")
+        tgt = Request(prompt=list(prompt), max_new_tokens=max_new)
+        rec, first = [], {}
+        inner = eng.backend.decode
+
+        def decode(p, toks, pos):
+            if first:
+                return inner(p, toks, pos)
+            first["slot"] = eng.sched.entry_for(tgt).slot
+            first["rows"] = int((pos >= 0).sum())
+            saved = [(mod, name, getattr(mod, name))
+                     for mod, name, _, _ in hooks]
+            for (mod, name, kind, pick), (_, _, fn) in zip(hooks, saved):
+                def wrapped(*a, _fn=fn, _kind=kind, _pick=pick, **kw):
+                    out = _fn(*a, **kw)
+                    rec.append((_kind, _pick(out).detach().float().cpu()))
+                    return out
+                setattr(mod, name, wrapped)
+            try:
+                return inner(p, toks, pos)
+            finally:
+                for mod, name, fn in saved:
+                    setattr(mod, name, fn)
+
+        eng.backend.decode = decode
+        for r in [tgt] + [Request(prompt=list(f), max_new_tokens=max_new)
+                          for f in fillers]:
+            eng.submit(r)
+        eng.run()
+        return rec, first, tgt.out
+
+    fillers = [[(t * (i + 2) + 1) % cfg.vocab_size for t in prompt]
+               for i in range(batch - 1)]
+    solo, s1, solo_out = run([])
+    cob, c1, cob_out = run(fillers)
+
+    def target(kind, t, slot):
+        # (B, 1, d) outputs and (B, 1, e) router logits are indexed by
+        # row; expert outputs (e | 1, B x capacity 1, d) by buffer row
+        return t[:, slot] if kind == "experts" else t[slot]
+
+    layer, rows, first_diff = -1, [], None
+    for (kind, a), (kind2, b) in zip(solo, cob):
+        assert kind == kind2
+        layer += kind == "attn"
+        diff = (target(kind, a, s1["slot"])
+                - target(kind, b, c1["slot"])).abs().max().item()
+        rows.append(f"l{layer}:{kind}={diff:.3e}")
+        if diff > 0 and first_diff is None:
+            first_diff = (layer, kind)
+    log(f"[bisect] {card}: {cfg.name}, target row at its first decode "
+        f"step alone (slot {s1['slot']}, {s1['rows']} active row) vs "
+        f"co-batched (slot {c1['slot']}, {c1['rows']} active rows of "
+        f"{batch}): {len(solo)} intermediates; first that differs: "
+        f"{first_diff}; max|diff| by layer and op: " + " ".join(rows[:40]))
+    same = solo_out == cob_out
+    n_same = sum(a == b for a, b in zip(solo_out, cob_out))
+    log(f"[bisect] {card}: {cfg.name}: greedy tokens alone == co-batched: "
+        f"{same} ({n_same}/{len(solo_out)} agree; alone {solo_out}, "
+        f"co-batched {cob_out})")
+
+    # the ops alone at the step's shapes, on this model's weights: the
+    # routed experts' batched matmul (e, M, d) x (e, d, f) and a dense
+    # (M, d) x (d, h k) projection; row 0 at M = batch against M = 1
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    layer_p = params["layers"][cfg.moe_layer_indices()[0]]
+    w_up = layer_p["moe"]["experts"]["w_up"].to(torch.bfloat16)
+    wq = layer_p["attn"]["wq"].to(torch.bfloat16)
+    e, d = w_up.shape[:2]
+    xs = torch.randn(e, batch, d, generator=gen, device="cuda").bfloat16()
+    x2 = torch.randn(batch, 1, d, generator=gen, device="cuda").bfloat16()
+    router = layer_p["moe"]["router"].float()
+    xf = x2.float()
+    iso = {
+        f"bmm ({e}, M, {d}) x {tuple(w_up.shape)} in bf16": (
+            torch.matmul(xs, w_up)[:, :1], torch.matmul(xs[:, :1], w_up)),
+        f"einsum bsd,dhk (M, 1, {d}) x {tuple(wq.shape)} in bf16": (
+            torch.einsum("bsd,dhk->bshk", x2, wq)[:1],
+            torch.einsum("bsd,dhk->bshk", x2[:1], wq)),
+        f"router einsum gtd,de (M, 1, {d}) x {tuple(router.shape)} in f32":
+            (torch.einsum("gtd,de->gte", xf, router)[:1],
+             torch.einsum("gtd,de->gte", xf[:1], router)),
+    }
+    if "w_uk" in layer_p["attn"]:  # MLA's absorbed query, in f32
+        a = cfg.attention
+        w_uk = layer_p["attn"]["w_uk"].float()
+        qn = torch.randn(batch, 1, a.num_heads, a.qk_nope_head_dim,
+                         generator=gen, device="cuda")
+        iso[f"MLA einsum bshk,rhk (M, 1, {a.num_heads}, "
+            f"{a.qk_nope_head_dim}) x {tuple(w_uk.shape)} in f32"] = (
+            torch.einsum("bshk,rhk->bshr", qn, w_uk)[:1],
+            torch.einsum("bshk,rhk->bshr", qn[:1], w_uk))
+    for name, (many, one) in iso.items():
+        diff = (many.float() - one.float()).abs()
+        log(f"[bisect] {card}: alone, {name}, row 0 at M={batch} "
+            f"vs M=1: max|diff| {diff.max().item():.3e} "
+            f"({int((diff > 0).sum())} of {diff.numel()} elements differ; "
+            f"max|out| {one.float().abs().max().item():.3e})")
+    return first_diff, same
+
+
+def serving_weights(torch, cfg, seed=0):
+    """``serving_params(lm_init(gen, cfg))`` for ``gen`` the card's
+    generator seeded with ``seed``, without holding the f32 model: the
+    same draws in ``lm_init``'s order (embedding, frontend, layers,
+    unembed), each layer cast as ``serving_params`` casts it as soon as
+    it is drawn, so no more than one layer's f32 weights live at a time
+    (deepseek-v2-lite's 15.7 B params are 63 GB in f32)."""
+    from repro_torch.layers.common import lecun_init, norm_init
+    from repro_torch.layers.embedding import embedding_init
+    from repro_torch.models.lm import block_init, check_supported
+    from repro_torch.serve.engine import serving_params
+
+    check_supported(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    moe_idx = set(cfg.moe_layer_indices())
+    params = {"embed": embedding_init(gen, cfg.vocab_size, cfg.d_model)}
+    if cfg.frontend.kind != "none":
+        fe = cfg.frontend.embed_dim
+        params["frontend"] = {"w": lecun_init(gen, (fe, cfg.d_model),
+                                              fan_in=fe)}
+    layers = []
+    for i in range(cfg.num_layers):
+        one = {"layers": [block_init(gen, cfg, i in moe_idx)],
+               "final_norm": {}}
+        layers.append(serving_params(one, cfg)["layers"][0])
+        del one
+    params["layers"] = layers
+    params["final_norm"] = serving_params(
+        {"layers": [], "final_norm": norm_init(cfg, cfg.d_model, "cuda")},
+        cfg)["final_norm"]
+    if not cfg.tie_embeddings and cfg.vocab_size:
+        params["unembed"] = embedding_init(gen, cfg.vocab_size, cfg.d_model)
+    return params
+
+
+def check_serving_weights(torch):
+    """``serving_weights`` equals ``serving_params(lm_init(...))`` bitwise
+    on the reduced deepseek and pixtral configs, leaf for leaf."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import lm_init
+    from repro_torch.optim import tree_leaves
+    from repro_torch.serve.engine import serving_params
+
+    for name in ("deepseek-v2-lite-16b", "pixtral-12b"):
+        cfg = reduced(get_config(name))
+        want = serving_params(lm_init(
+            torch.Generator(device="cuda").manual_seed(0), cfg), cfg)
+        got = serving_weights(torch, cfg)
+        same = set(got) == set(want) and all(
+            len(tree_leaves(got[k])) == len(tree_leaves(want[k])) and all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+                    tree_leaves(got[k]), tree_leaves(want[k])))
+            for k in want)
+        if not same:
+            raise AssertionError(f"serving_weights differs from "
+                                 f"serving_params(lm_init) on reduced {name}")
+    log("[weights] serving_weights == serving_params(lm_init(...)) bitwise "
+        "on reduced deepseek-v2-lite-16b and pixtral-12b")
+
+
+def count_params(params):
+    from repro_torch.optim import tree_leaves
+
+    leaves = tree_leaves(params)
+    return (sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: deepseek-v2-lite-16b (MLA) served at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def mla_layer_check(torch, cfg, params, card):
+    """One MLA layer (layer 1) in f32 on the input the model feeds it
+    (captured from a 256-token forward), on the card against the host
+    CPU: no cache, then a paged chunked prefill (chunks of 32, the last
+    ragged) and three decode steps; each call's output within 1e-5 of its
+    largest value, and the latent pool's valid entries too. Returns the
+    worst error."""
+    from repro_torch.layers.attention import init_paged_kv_cache, mla_apply
+    from repro_torch.models import lm, lm_apply
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(1, cfg.vocab_size, (1, 256), generator=gen,
+                           device="cuda")
+    seen, inner = [], lm.attention_apply
+
+    def capture(p, c, x, **kw):
+        seen.append((p, x))
+        return inner(p, c, x, **kw)
+
+    lm.attention_apply = capture
+    try:
+        with torch.no_grad():
+            lm_apply(params, cfg, tokens, mode="prefill", last_only=True)
+    finally:
+        lm.attention_apply = inner
+    p_attn, x = seen[1]
+    seen.clear()
+    n, bs, n_dec = x.shape[1], 16, 3
+    calls = [(c, min(c + 32, n - n_dec)) for c in range(0, n - n_dec, 32)]
+    calls += [(i, i + 1) for i in range(n - n_dec, n)]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.float().to(dev) for k, v in p_attn.items()}
+        xd = x.float().to(dev)
+        nblk = n // bs + 2
+        pool = init_paged_kv_cache(cfg, nblk, bs, torch.float32, device=dev)
+        tables = torch.arange(1, nblk, dtype=torch.int32,
+                              device=dev)[None]
+        with torch.no_grad():
+            res = [mla_apply(p, cfg, xd)[0]]
+            for a, b in calls:
+                pos = torch.arange(a, b, dtype=torch.int32, device=dev)[None]
+                res.append(mla_apply(p, cfg, xd[:, a:b], positions=pos,
+                                     cache=pool, mode="decode",
+                                     block_tables=tables)[0])
+        outs[dev] = [t.cpu() for t in res] + [pool[k].cpu() for k in
+                                              ("ckv", "krope", "pos")]
+    g, c = outs["cuda"], outs["cpu"]
+    errs = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(g[:-1], c[:-1])]
+    pos_equal = torch.equal(g[-1], c[-1])
+    # the paged calls against the no-cache output, on the card
+    paged = torch.cat(g[1:1 + len(calls)], dim=1)
+    self_err = ((paged - g[0]).abs().max() / g[0].abs().max()).item()
+    worst = max(errs)
+    log(f"[mla] {card}: layer 1 alone in f32 on its captured input ({n} "
+        f"tokens), card vs host CPU, max|diff| / max|ref| (tol 1e-5): no "
+        f"cache {errs[0]:.3e}; paged prefill chunks "
+        + " ".join(f"{e:.3e}" for e in errs[1:1 + len(calls) - n_dec])
+        + "; decode steps "
+        + " ".join(f"{e:.3e}" for e in errs[len(calls) - n_dec + 1:
+                                             len(calls) + 1])
+        + f"; pool ckv {errs[-2]:.3e} krope {errs[-1]:.3e}, pos equal "
+        f"{pos_equal}; paged calls vs no cache on the card {self_err:.3e}")
+    if worst > 1e-5 or not pos_equal or self_err > 1e-5:
+        raise AssertionError("the MLA layer on the card disagrees with the "
+                             "CPU")
+    return worst
+
+
+def phase_mla_serve(torch, card):
+    """The paged engine serves deepseek-v2-lite-16b at full width and depth
+    (MLA attention over the latent pool, 26 Tokens Choice layers): K7
+    never runs (MLA decode gathers, as in the reference), nor K1-K6."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_decode_attend
+    from repro_torch.kernels.soft_moe_kernels import (
+        combine_apply,
+        combine_bwd,
+        combine_online,
+        dispatch_bwd,
+        routing_fwd,
+        routing_health,
+    )
+    from repro_torch.serve import Request, ServeEngine, batch_variance_probe
+
+    kernels = (paged_decode_attend, routing_fwd, combine_apply,
+               combine_online, dispatch_bwd, combine_bwd, routing_health)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_serving_weights(torch)
+    cfg = get_config("deepseek-v2-lite-16b")
+    a, moe = cfg.attention, cfg.moe
+    t0 = time.perf_counter()
+    params = serving_weights(torch, cfg)
+    torch.cuda.synchronize()
+    n_params, n_bytes = count_params(params)
+    log(f"[mla] {cfg.name}: {cfg.num_layers} layers (layer 0 dense, "
+        f"{len(cfg.moe_layer_indices())} {moe.variant}, top-{moe.top_k} of "
+        f"{moe.num_experts} experts + {moe.num_shared_experts} shared, d_ff "
+        f"{moe.expert_d_ff}), d {cfg.d_model}, MLA {a.num_heads} heads, "
+        f"kv_lora_rank {a.kv_lora_rank}, rope {a.qk_rope_head_dim}, nope "
+        f"{a.qk_nope_head_dim}, v {a.v_head_dim}, vocab {cfg.vocab_size}; "
+        f"{n_params} params ({n_params / 1e9:.4f} B) as served: "
+        f"{n_bytes / 2**30:.3f} GiB (bf16 layers; embeddings, w_uk, w_uv "
+        f"and routers f32; built layer by layer in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    mla_layer_check(torch, cfg, params, card)
+
+    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda")
+    max_new = 16
+    prompts = moe_serve_requests(np, cfg.vocab_size)
+    warm = ServeEngine(cfg, params, telemetry=True, **geo)
+    run_engine(torch, warm, prompts[1:3], 4)
+    del warm
+    runs = {}
+    for telemetry in (True, False):
+        eng = ServeEngine(cfg, params, telemetry=telemetry, **geo)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        reqs, wall, decode_s = run_engine(torch, eng, prompts, max_new)
+        runs[telemetry] = (eng, reqs, wall, decode_s,
+                           tuple(k.launches for k in kernels),
+                           torch.cuda.max_memory_allocated())
+    eng, reqs, wall, decode_s, launches, peak = runs[True]
+    done = all(r.done and r.finish_reason == "length" for r in reqs)
+    flat = eng.telemetry_snapshot().get("decode", {})
+    missing = [i for i in cfg.moe_layer_indices()
+               if f"moe_l{i}_router_entropy" not in flat]
+    finite = all(math.isfinite(v) for ph in
+                 eng.telemetry_snapshot().values() for v in ph.values())
+    dropped = [flat.get(f"moe_l{i}_dropped_fraction", 1.0)
+               for i in cfg.moe_layer_indices()]
+    same = [r.out for r in reqs] == [r.out for r in runs[False][1]]
+    n_tok = sum(len(r.out) for r in reqs)
+    on50 = statistics.median(decode_s) * 1e3
+    off50 = statistics.median(runs[False][3]) * 1e3
+    log(f"[mla] {cfg.name}: {len(reqs)} requests done={done}, "
+        f"{eng.decode_steps} decode steps; launches K7 {launches[0]} "
+        f"(0: MLA decode gathers), K1-K6 {launches[1:]} (0: serving runs "
+        f"the MoE einsum path); {len(flat)} telemetry keys a decode call, "
+        f"finite {finite}, MoE layers missing router_entropy {missing}; "
+        f"decode dropped_fraction max {max(dropped):.3g} over "
+        f"{len(dropped)} layers; greedy tokens with telemetry on == off: "
+        f"{same}")
+    log(f"[mla] {card}: {cfg.name} served (batch 8, max_len 2048, block 16, "
+        f"8 requests of 16-256 prompt tokens, 16 new): telemetry on "
+        f"{n_tok / wall:.1f} tok/s, decode step p50 {on50:.2f} ms; off "
+        f"{n_tok / runs[False][2]:.1f} tok/s, p50 {off50:.2f} ms (on/off "
+        f"{on50 / off50:.4f}); peak device memory {peak / 2**30:.3f} GiB "
+        f"(off {runs[False][5] / 2**30:.3f}); latent pool "
+        f"{eng.backend.bytes_per_block() * eng.backend.num_blocks / 2**30:.3f}"
+        f" GiB")
+    if not done or any(launches) or missing or not finite or not same or \
+            any(v != 0.0 for v in dropped):
+        raise AssertionError("deepseek serving failed: unfinished requests, "
+                             "a kernel launch, telemetry or token parity")
+    del runs, eng, reqs
+    # where the time goes: 10 ticks in the middle of the same trace
+    prof_eng = ServeEngine(cfg, params, **geo)
+    for pr in prompts:
+        prof_eng.submit(Request(prompt=list(pr), max_new_tokens=max_new))
+    for _ in range(30):
+        prof_eng.step()
+    tick_profile(torch, prof_eng, 10, f"mla serve {card}: 10 ticks (ticks "
+                 f"31-40 of the trace, telemetry off)")
+    del prof_eng
+    res = batch_variance_probe(cfg, params, [1, 2, 3, 4], batch_size=4,
+                               max_new_tokens=8, max_len=64)
+    top = sorted(res["per_stat"].items(), key=lambda kv: -kv[1])[:3]
+    log(f"[mla] {card}: batch_variance_probe {cfg.name} (batch 4): "
+        f"divergence {res['divergence']:.3e} over {res['steps_compared']} "
+        f"steps; largest " + " ".join(f"{k}={v:.3e}" for k, v in top))
+    if res["steps_compared"] == 0:
+        raise AssertionError("the probe compared no decode step")
+    batch_variance_bisect(torch, cfg, params, card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 14: pixtral-12b, the vision frontend stub, at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def phase_vlm(torch, card):
+    """pixtral-12b at full width and depth: a forward with patch
+    embeddings, then text-only serving with K7 on every decode step, teacher
+    forced against the gather path."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_decode_attend
+    from repro_torch.models import lm_apply
+    from repro_torch.serve import Request, ServeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("pixtral-12b")
+    fe = cfg.frontend
+    t0 = time.perf_counter()
+    params = serving_weights(torch, cfg)
+    torch.cuda.synchronize()
+    n_params, n_bytes = count_params(params)
+    log(f"[vlm] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, {cfg.attention.num_heads} heads / "
+        f"{cfg.attention.num_kv_heads} KV x {cfg.attention.head_dim}, vocab "
+        f"{cfg.vocab_size}, frontend {fe.kind} ({fe.embed_dim} -> "
+        f"{cfg.d_model}); {n_params} params ({n_params / 1e9:.4f} B) as "
+        f"served: {n_bytes / 2**30:.3f} GiB (built layer by layer in "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # the frontend stub: 2 rows of 256 N(0, 1) patch embeddings + 256 text
+    # tokens, under inference_mode
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    embeds = torch.randn(2, fe.num_embeds, fe.embed_dim, generator=gen,
+                         device="cuda")
+    tokens = torch.randint(1, cfg.vocab_size, (2, 256), generator=gen,
+                           device="cuda")
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits = lm_apply(params, cfg, tokens, embeds=embeds)[0]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated()
+        text = lm_apply(params, cfg, tokens)[0]
+        finite = bool(torch.isfinite(logits).all())
+        moved = (logits[:, fe.num_embeds:] - text).abs().max().item()
+    shape = tuple(logits.shape)
+    fwd50 = statistics.median(times[1:]) * 1e3
+    log(f"[vlm] {card}: lm_apply(embeds=) on 2 rows of {fe.num_embeds} "
+        f"patch embeddings + 256 tokens: logits {shape} finite {finite}; "
+        f"forward p50 {fwd50:.2f} ms over 5 (first {times[0] * 1e3:.2f} "
+        f"ms), {2 * (fe.num_embeds + 256) / fwd50 * 1e3:.1f} positions/s; "
+        f"peak device memory {peak / 2**30:.3f} GiB; the text logits move "
+        f"by {moved:.3e} against a text-only forward (the patches are "
+        f"attended)")
+    if shape != (2, fe.num_embeds + 256, cfg.vocab_size) or not finite or \
+            not moved > 0:
+        raise AssertionError("the vlm forward with embeds failed")
+    del logits, text, embeds
+
+    # text-only serving, phase 12's trace; counts from 0
+    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda")
+    max_new = 16
+    prompts = moe_serve_requests(np, cfg.vocab_size)
+    warm = ServeEngine(cfg, params, **geo)
+    run_engine(torch, warm, prompts[1:3], 4)
+    del warm
+    eng = ServeEngine(cfg, params, **geo)
+    torch.cuda.reset_peak_memory_stats()
+    paged_decode_attend.launches = 0
+    reqs, wall, decode_s = run_engine(torch, eng, prompts, max_new)
+    launches = paged_decode_attend.launches
+    peak = torch.cuda.max_memory_allocated()
+    done = all(r.done and r.finish_reason == "length" for r in reqs)
+    n_tok = sum(len(r.out) for r in reqs)
+    log(f"[vlm] {cfg.name} served text only: {len(reqs)} requests "
+        f"done={done}, {eng.decode_steps} decode steps; K7 launches "
+        f"{launches} (decode_steps x {cfg.num_layers} = "
+        f"{eng.decode_steps * cfg.num_layers})")
+    log(f"[vlm] {card}: {cfg.name} served (batch 8, max_len 2048, block "
+        f"16, 8 requests of 16-256 prompt tokens, 16 new): "
+        f"{n_tok / wall:.1f} tok/s, decode step p50 "
+        f"{statistics.median(decode_s) * 1e3:.2f} ms; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    if not done or launches != eng.decode_steps * cfg.num_layers or \
+            launches == 0:
+        raise AssertionError("pixtral serving: unfinished requests or K7 "
+                             "launches != decode_steps x layers")
+    del eng, reqs
+    prof_eng = ServeEngine(cfg, params, **geo)
+    for pr in prompts:
+        prof_eng.submit(Request(prompt=list(pr), max_new_tokens=max_new))
+    for _ in range(30):
+        prof_eng.step()
+    tick_profile(torch, prof_eng, 10, f"vlm serve {card}: 10 ticks (ticks "
+                 f"31-40 of the trace)")
+    del prof_eng
+
+    # the kernel engine against the gather engine, teacher forced
+    oracle = ServeEngine(cfg, params, use_kernel=False, **geo)
+    ticks = teacher_forced(torch, ServeEngine(cfg, params, **geo), oracle,
+                           prompts, max_new)
+    # PERF.md section 2's serving bound: a pass's max|diff| over the
+    # gather engine's max|logit| (pixtral's logits are ~2.4x qwen2-0.5b's:
+    # an untied 5120-wide unembedding)
+    rels = [d / r for _, d, _, r in ticks]
+    rows = sum(len(t[0]) for t in ticks)
+    agree = sum(t[2] for t in ticks)
+    log(f"[vlm] {card}: kernel vs gather engine, teacher forced: "
+        f"{len(ticks)} sampling passes, {rows} row logits compared; "
+        f"max|diff| / max|ref| of a pass at most {max(rels):.3e} (tol "
+        f"5e-2), median {statistics.median(rels):.3e}; max_abs_diff "
+        f"{max(t[1] for t in ticks):.3e}, max|ref| "
+        f"{min(t[3] for t in ticks):.3e}-{max(t[3] for t in ticks):.3e}; "
+        f"identical greedy tokens {agree}/{rows} = {agree / rows:.4f}")
+    if not all(math.isfinite(r) for r in rels) or max(rels) > 5e-2:
+        raise AssertionError("pixtral kernel engine logits disagree with "
+                             "the gather engine")
+    del oracle, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paged_decode_attend": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: deepseek-v2-lite trained at 4096 tokens on the chunked path
+# ---------------------------------------------------------------------------
+
+
+def phase_long_lm_train(torch, card):
+    """deepseek-v2-lite-16b at full width, depth cut to 4 layers (layer 0
+    dense, 1-3 Tokens Choice as published), trained on batch 2 x 4096:
+    every MLA layer attends through the chunked path; at step 0 its loss
+    against the dense path's."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.layers import attention
+    from repro_torch.models import lm_init, lm_loss
+    from repro_torch.optim import OptimizerConfig, tree_leaves
+    from repro_torch.train import (
+        Trainer,
+        TrainerConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(full, num_layers=4, moe_layers="1,2,3")
+    cut = (f"depth cut from {full.num_layers} to {cfg.num_layers} layers "
+           f"(layer 0 dense, 1-3 {cfg.moe.variant})")
+    batch, seq = 2, 4096
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             lambda g: lm_init(g, cfg))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                       batch_size=batch, seed=0, device="cuda")
+    log(f"[long-lm] {cfg.name}, {cut}: d {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}; scan_layers={cfg.scan_layers} remat={cfg.remat}; "
+        f"{n_params} params ({n_params / 1e9:.4f} B); train state "
+        f"{state_bytes / 2**30:.3f} GiB (init {time.perf_counter() - t0:.1f} "
+        f"s); compute {cfg.dtype}, batch {batch} x {seq} tokens of "
+        f"SyntheticLM; Sq x Sk = {seq * seq} > _CHUNKED_THRESHOLD "
+        f"{attention._CHUNKED_THRESHOLD}")
+
+    calls = []
+    inner = attention._attend_chunked
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return inner(*a, **kw)
+
+    attention._attend_chunked = counted
+    try:
+        # step 0, no grad: the chunked path's loss against the dense
+        # path's (the threshold raised past every product)
+        b0 = data.batch(0)
+        with torch.no_grad():
+            torch.cuda.reset_peak_memory_stats()
+            lc = float(lm_loss(state["params"], cfg, b0)[1]["loss"])
+            peak_c = torch.cuda.max_memory_allocated()
+            n_chunked = len(calls)
+            threshold = attention._CHUNKED_THRESHOLD
+            attention._CHUNKED_THRESHOLD = 1 << 62
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                ld = float(lm_loss(state["params"], cfg, b0)[1]["loss"])
+                peak_d = torch.cuda.max_memory_allocated()
+            finally:
+                attention._CHUNKED_THRESHOLD = threshold
+        rel = abs(lc - ld) / abs(ld)
+        log(f"[long-lm] {card}: step 0 forward, no grad: loss chunked "
+            f"{lc:.6f} ({n_chunked} chunked attends) vs dense {ld:.6f} "
+            f"(ln {cfg.vocab_size} = {math.log(cfg.vocab_size):.6f}), rel "
+            f"diff {rel:.3e} (tol 1e-3); peak device memory chunked "
+            f"{peak_c / 2**30:.3f} vs dense {peak_d / 2**30:.3f} GiB")
+        if rel > 1e-3 or n_chunked != cfg.num_layers or \
+                not math.isfinite(lc):
+            raise AssertionError("the chunked path's loss disagrees with "
+                                 "the dense path's")
+
+        # the main path: the Trainer on the telemetry loss; counts from 0
+        ckpt_dir = ROOT / "build" / "chip_smoke_long_lm_ckpt"
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        n_steps = 5
+        trainer = Trainer(
+            TrainerConfig(total_steps=n_steps, checkpoint_every=10**9,
+                          checkpoint_dir=str(ckpt_dir), keep_checkpoints=1,
+                          log_every=1),
+            lambda p, b: lm_loss(p, cfg, b, telemetry=True), None,
+            OptimizerConfig(), data)
+        trainer.ckpt.save = lambda *a, **kw: None  # no closing save
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        calls.clear()
+        state = trainer.run(torch.Generator(device="cuda").manual_seed(0),
+                            start_state=state)
+        n_chunked = len(calls)
+    finally:
+        attention._attend_chunked = inner
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    hist = trainer.metrics_history
+    times = [m["step_time"] for m in hist]
+    p50 = statistics.median(times)
+    dropped = {k[len("telemetry_"):]: v for k, v in hist[-1].items()
+               if k.endswith("dropped_fraction")}
+    # remat runs each block's forward again in the backward
+    per_step = cfg.num_layers * (2 if cfg.scan_layers and cfg.remat else 1)
+    log(f"[long-lm] {card}: {cfg.name}, {cut}: Trainer steps 0-"
+        f"{n_steps - 1} (telemetry on, no closing save): step p50 "
+        f"{p50 * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
+        f"{max(times) * 1e3:.2f}) = {batch * seq / p50:.1f} tokens/s; loss "
+        f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; peak device "
+        f"memory {peak / 2**30:.3f} GiB; chunked attends {n_chunked} (= "
+        f"{n_steps} steps x {per_step}: each layer's forward and remat "
+        f"recompute); last step's dropped fractions {dropped}")
+    if n_chunked != n_steps * per_step or \
+            not all(math.isfinite(m["loss"]) for m in hist):
+        raise AssertionError("the long LM steps did not run the chunked "
+                             "path, or the loss is not finite")
+    # where the time goes: one profiled step with telemetry on
+    step = make_train_step(lambda p, b: lm_loss(p, cfg, b, telemetry=True),
+                           OptimizerConfig())
+    state, pwall, busy = profile_step(torch, step, state,
+                                      data.batch(n_steps),
+                                      f"long lm train {card} ({cut})")
+    del state, trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"p50": p50, "peak": peak, "busy": busy / pwall}
 
 
 def _get(tree, path):
@@ -3001,6 +3720,10 @@ def main():
         launches.update(lm_launches)
         phase_sparse_lm_train(torch, card, soft_summary)
         phase_moe_serve(torch, card)
+        phase_mla_serve(torch, card)
+        launches["paged_decode_attend"] += phase_vlm(
+            torch, card)["paged_decode_attend"]
+        phase_long_lm_train(torch, card)
     except Exception as e:  # noqa: BLE001 — report which phase failed
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr,
               flush=True)

@@ -1,34 +1,42 @@
-"""GQA attention (optional QKV bias, sliding window) over no cache or a
-paged KV pool, counterpart of the GQA part of ``repro/layers/attention.py``.
+"""Attention variants: GQA (optional QKV bias, sliding window) and MLA
+(DeepSeek-V2 multi-head latent attention with a compressed KV cache),
+over no cache or a paged KV pool, counterpart of
+``repro/layers/attention.py``.
 
 Two execution modes share one code path:
   * train/eval: full sequence, no cache.
   * paged serving: chunked prefill (S > 1) and single-token decode attend
-    a (num_blocks, block_size, G, D) block pool through per-row block
-    tables. Single-token decode can run the paged decode-attention kernel
-    (kernels/paged_attention.py), which reads the pool in place; every
-    other call gathers the row view and runs the dense masked softmax.
+    a block pool through per-row block tables: (num_blocks, block_size,
+    G, D) keys and values for GQA, the (num_blocks, block_size, rank)
+    latent ``ckv`` and the (num_blocks, block_size, rope_dim) ``krope``
+    for MLA. GQA's single-token decode can run the paged decode-attention
+    kernel (kernels/paged_attention.py), which reads the pool in place;
+    every other call, MLA decode included, gathers the row view.
 
-The pool is updated IN PLACE (the JAX package returns a new pytree and
-donates the old one; here the same tensors are written). MLA, the
-contiguous ring cache and the chunked (flash-style) long-KV path wait for
-later slices.
+Both attend densely (``_attend``) or, once Sq * Sk passes
+``_CHUNKED_THRESHOLD``, with the flash-style online softmax over key
+blocks (``_attend_chunked``), as the reference does. The pool is updated
+IN PLACE (the JAX package returns a new pytree and donates the old one;
+here the same tensors are written). The contiguous ring cache is not
+ported: a cache without block tables raises.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.paged_attention import paged_decode_attend
 from .common import lecun_init, resolve_device
 from .rotary import apply_rope
 
 NEG_INF = -2.0**30
+_RING_CACHE = "the contiguous ring cache is not ported; pass block_tables"
 
-# The JAX package switches to a chunked flash-style attend above this
-# (Sq * Sk) product. The port has no chunked path yet, so the serving
-# paths assert they stay under it (max_len <= 4096 at chunk 32 does).
+# Above this (Sq * Sk) product attention takes the flash-style chunked
+# path (`_attend_chunked`), which never holds the (Sq, Sk) logits: at
+# 4096 tokens the dense path's f32 logits are (b, h, 4096, 4096).
 _CHUNKED_THRESHOLD = 2048 * 4096
 
 
@@ -59,16 +67,18 @@ def init_paged_kv_cache(cfg, num_blocks: int, block_size: int,
     term of `make_mask`. Block 0 is the NULL block: its `pos` stays -1
     forever, so unallocated table entries address only masked-out keys."""
     a = cfg.attention
-    if a.kind != "gqa":
-        raise NotImplementedError(f"attention kind {a.kind!r} not ported")
     device = resolve_device(device)
-    shape = (num_blocks, block_size, a.num_kv_heads, a.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((num_blocks, block_size), -1, dtype=torch.int32,
-                          device=device),
-    }
+    if a.kind == "mla":
+        shapes = {"ckv": (num_blocks, block_size, a.kv_lora_rank),
+                  "krope": (num_blocks, block_size, a.qk_rope_head_dim)}
+    else:
+        shape = (num_blocks, block_size, a.num_kv_heads, a.head_dim)
+        shapes = {"k": shape, "v": shape}
+    pool = {n: torch.zeros(sh, dtype=dtype, device=device)
+            for n, sh in shapes.items()}
+    pool["pos"] = torch.full((num_blocks, block_size), -1,
+                             dtype=torch.int32, device=device)
+    return pool
 
 
 def _attend(q, k, v, mask, scale: Optional[float] = None):
@@ -86,6 +96,70 @@ def _attend(q, k, v, mask, scale: Optional[float] = None):
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrst,btgd->bsgrd", w, v.float())
     return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+def _attend_chunked(q, k, v, qpos, kpos, causal: bool,
+                    window: Optional[int], scale: Optional[float] = None,
+                    is_global: bool = True, block: int = 1024):
+    """Flash-style online-softmax attention over key blocks of ``block``:
+    never holds the (Sq, Sk) logits or mask. Shapes as `_attend`; qpos
+    (Sq,) or (B,Sq), kpos (Sk,) or (B,Sk). The arithmetic is the
+    reference's: f32 throughout, keys padded to whole blocks with
+    position -1, running max, sum and accumulator, then acc / max(l,
+    1e-30). So a row with no valid key averages every key, padding
+    included, as the reference does (`_attend` would average the valid
+    length only). Each block runs under activation checkpointing, so the
+    backward recomputes its (Sq, block) tile instead of storing the
+    probabilities of every block."""
+    b, sq, h, d = q.shape
+    sk, g, dv = k.shape[1], k.shape[2], v.shape[-1]
+    rep = h // g
+    scale = scale if scale is not None else 1.0 / float(d) ** 0.5
+    if kpos.ndim == 1:  # shared key positions -> per row
+        kpos = kpos[None].expand(b, sk)
+    pad = -sk % block
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = torch.nn.functional.pad(kpos, (0, pad), value=-1)
+    qg = q.float().reshape(b, sq, g, rep, d)
+    kf, vf = k.float(), v.float()
+
+    def body(m, l, acc, kblk, vblk, kp):
+        s = torch.einsum("bsgrd,btgd->bgrst", qg, kblk) * scale
+        mask = make_mask(qpos, kp, causal, window, is_global)  # (b,sq,blk)
+        s = torch.where(mask[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = (acc * corr[..., None]
+               + torch.einsum("bgrst,btgd->bgrsd", p, vblk))
+        return m_new, l, acc
+
+    m = torch.full((b, g, rep, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, g, rep, sq), device=q.device)
+    acc = torch.zeros((b, g, rep, sq, dv), device=q.device)
+    for i in range(0, sk + pad, block):
+        m, l, acc = checkpoint(body, m, l, acc, kf[:, i:i + block],
+                               vf[:, i:i + block], kpos[:, i:i + block],
+                               use_reentrant=False)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+
+
+def _attend_any(q, k, v, qpos, kpos, causal: bool, window: Optional[int],
+                scale: Optional[float] = None, is_global: bool = True):
+    """The reference's dispatch: the chunked path once Sq * Sk passes
+    ``_CHUNKED_THRESHOLD``, else the dense masked softmax."""
+    b, s = q.shape[:2]
+    if k.shape[1] * max(s, 1) > _CHUNKED_THRESHOLD:
+        return _attend_chunked(q, k, v, qpos, kpos, causal, window,
+                               scale=scale, is_global=is_global)
+    mask = make_mask(qpos, kpos, causal, window, is_global)
+    if mask.ndim == 2:  # shared (S,) positions -> add batch dim
+        mask = mask[None].expand(b, -1, -1)
+    return _attend(q, k, v, mask, scale=scale)
 
 
 def make_mask(q_positions, k_positions, causal: bool,
@@ -228,30 +302,97 @@ def gqa_apply(params, cfg, x, *, layer_is_global: bool = True,
         gathered, kpos = _paged_view(cache, block_tables)
         k_all, v_all = gathered["k"], gathered["v"]
     else:
-        raise NotImplementedError("the contiguous ring cache is not "
-                                  "ported; pass block_tables")
+        raise NotImplementedError(_RING_CACHE)
 
-    if k_all.shape[1] * max(s, 1) > _CHUNKED_THRESHOLD:
-        raise NotImplementedError(
-            f"attention over {k_all.shape[1]} keys x {s} queries needs the "
-            "chunked path, which is not ported")
-    mask = make_mask(positions, kpos, cfg.causal, window, is_global)
-    if mask.ndim == 2:  # shared (S,) positions -> add batch dim
-        mask = mask[None].expand(b, -1, -1)
-    out = _attend(q, k_all, v_all, mask)
+    out = _attend_any(q, k_all, v_all, positions, kpos, cfg.causal, window,
+                      is_global=is_global)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
     return out, cache
 
 
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen: torch.Generator, cfg):
+    a = cfg.attention
+    d = cfg.d_model
+    qk_head = a.qk_nope_head_dim + a.qk_rope_head_dim
+    return {
+        "wq": lecun_init(gen, (d, a.num_heads, qk_head), fan_in=d),
+        "w_dkv": lecun_init(gen, (d, a.kv_lora_rank), fan_in=d),
+        "w_krope": lecun_init(gen, (d, a.qk_rope_head_dim), fan_in=d),
+        "w_uk": lecun_init(gen, (a.kv_lora_rank, a.num_heads,
+                                 a.qk_nope_head_dim), fan_in=a.kv_lora_rank),
+        "w_uv": lecun_init(gen, (a.kv_lora_rank, a.num_heads, a.v_head_dim),
+                           fan_in=a.kv_lora_rank),
+        "wo": lecun_init(gen, (a.num_heads, a.v_head_dim, d),
+                         fan_in=a.num_heads * a.v_head_dim),
+    }
+
+
+def mla_apply(params, cfg, x, *, positions=None, cache=None,
+              mode: str = "train", layer_is_global: bool = True,
+              block_tables=None, paged_kernel: bool = False):
+    """MLA with a compressed-KV cache, in the absorbed form: q_nope is
+    projected into the latent rank space (in f32, against an f32 ``w_uk``)
+    so the scores are taken against the (B, S, rank) latent directly, as
+    attention with one shared KV "head" of width rank + rope_dim for the
+    scores and rank for the values; the weighted latent is expanded
+    through ``w_uv`` (in f32) once, then ``wo``. Returns (out, cache).
+
+    ``paged_kernel`` is accepted for signature parity and ignored: MLA
+    decode always gathers the paged row view, as in the reference, whose
+    paged decode kernel reads GQA pools only (the latent pool's score and
+    value widths differ). So the paged decode-attention kernel never runs
+    for an MLA model; this is the reference's design, not a fallback."""
+    del layer_is_global, paged_kernel
+    a = cfg.attention
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    q_nope = q[..., :a.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., a.qk_nope_head_dim:], positions, a.rope_theta)
+    ckv = torch.einsum("bsd,dr->bsr", x, params["w_dkv"].to(dt))
+    krope = apply_rope(
+        torch.einsum("bsd,dk->bsk", x, params["w_krope"].to(dt))[:, :, None],
+        positions, a.rope_theta)[:, :, 0]
+    scale = 1.0 / float(a.qk_nope_head_dim + a.qk_rope_head_dim) ** 0.5
+
+    if cache is None:
+        ckv_all, krope_all, kpos = ckv, krope, positions
+    elif block_tables is not None:
+        if mode == "prefill":
+            raise ValueError("paged cache serves chunked prefill only "
+                             "(mode='decode' with S > 1)")
+        _paged_update(cache, {"ckv": ckv, "krope": krope}, positions,
+                      block_tables)
+        gathered, kpos = _paged_view(cache, block_tables)
+        ckv_all, krope_all = gathered["ckv"], gathered["krope"]
+    else:
+        raise NotImplementedError(_RING_CACHE)
+
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(),
+                         params["w_uk"].float()).to(dt)
+    q_cat = torch.cat([q_lat, q_rope], dim=-1)  # (b, s, h, rank + rope)
+    k_cat = torch.cat([ckv_all, krope_all], dim=-1)[:, :, None]
+    lat = _attend_any(q_cat, k_cat, ckv_all[:, :, None], positions, kpos,
+                      cfg.causal, None, scale=scale)
+    out = torch.einsum("bshr,rhv->bshv", lat.float(), params["w_uv"].float())
+    out = torch.einsum("bshv,hvd->bsd", out.to(dt), params["wo"].to(dt))
+    return out, cache
+
+
 def attention_init(gen: torch.Generator, cfg):
-    if cfg.attention.kind != "gqa":
-        raise NotImplementedError(
-            f"attention kind {cfg.attention.kind!r} not ported")
+    if cfg.attention.kind == "mla":
+        return mla_init(gen, cfg)
     return gqa_init(gen, cfg)
 
 
 def attention_apply(params, cfg, x, **kw):
-    if cfg.attention.kind != "gqa":
-        raise NotImplementedError(
-            f"attention kind {cfg.attention.kind!r} not ported")
+    if cfg.attention.kind == "mla":
+        return mla_apply(params, cfg, x, **kw)
     return gqa_apply(params, cfg, x, **kw)

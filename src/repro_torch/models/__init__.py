@@ -1,7 +1,7 @@
 """Model zoo of the port: the decoder-only LM and the ViT, plus a uniform
 ``build_model(cfg)`` entry point returning (init, loss, apply) fns
 (counterpart of ``repro/models/__init__.py``). The encoder-decoder family
-is not ported."""
+is not ported: ``build_model`` raises for it."""
 from __future__ import annotations
 
 from .lm import lm_apply, lm_init, lm_loss, segment_plan  # noqa: F401
@@ -26,5 +26,6 @@ def build_model(cfg):
     return (
         lambda gen: lm_init(gen, cfg),
         lambda p, b: lm_loss(p, cfg, b),
-        lambda p, b, **kw: lm_apply(p, cfg, b["tokens"], **kw),
+        lambda p, b, **kw: lm_apply(p, cfg, b["tokens"],
+                                    embeds=b.get("embeds"), **kw),
     )

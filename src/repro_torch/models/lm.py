@@ -1,6 +1,6 @@
-"""Decoder-only LM, dense GQA and MoE families, counterpart of
-``repro/models/lm.py``; its transformer block also carries the MoE
-layers of the ViT (``models/vit.py``).
+"""Decoder-only LM, the dense, MoE and vlm families with GQA or MLA
+attention, counterpart of ``repro/models/lm.py``; its transformer block
+also carries the MoE layers of the ViT (``models/vit.py``).
 
 Params hold one dict per layer under ``"layers"``; the JAX package stacks
 the layers of each homogeneous segment on a leading axis instead
@@ -11,8 +11,11 @@ checkpointing (``torch.utils.checkpoint``), and the telemetry of a
 segment is stacked on a leading ``(count,)`` axis and keyed by the
 segment's first layer; otherwise (serving, or ``scan_layers`` off, as
 ``reduced`` sets it) each layer's telemetry is keyed by its index, as
-the JAX unrolled path keys it. SSM, MLA, frontend and encoder-decoder
-models wait for later slices (``check_supported``). MoE layers run any
+the JAX unrolled path keys it. The vision frontend is the reference's
+stub: precomputed patch embeddings projected by ``params["frontend"]``
+and prepended to the tokens. SSM blocks, the audio frontend and
+encoder-decoder models wait for later slices (``check_supported``
+raises for them). MoE layers run any
 variant of ``core.moe_apply``: Soft MoE, the sparse baselines (whose
 routing scope follows ``mode``: coupled groups in train mode, per-row
 dropless routing when serving) and the ablations.
@@ -27,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import moe_apply, moe_init, resolve_moe_cfg
 from ..layers.attention import attention_apply, attention_init
-from ..layers.common import dtype_of, norm_apply, norm_init
+from ..layers.common import dtype_of, lecun_init, norm_apply, norm_init
 from ..layers.embedding import embed, embedding_init, unembed
 from ..layers.mlp import mlp_apply, mlp_init
 
@@ -53,10 +56,14 @@ def check_supported(cfg):
     missing = []
     if cfg.has_ssm():
         missing.append("SSM blocks")
-    if not cfg.has_attention() or cfg.attention.kind != "gqa":
-        missing.append("non-GQA attention")
-    if cfg.frontend.kind != "none" or cfg.encoder_layers:
-        missing.append("frontends / encoder-decoder")
+    if not cfg.has_attention():
+        missing.append("attention-free blocks")
+    elif cfg.attention.kind not in ("gqa", "mla"):
+        missing.append(f"{cfg.attention.kind!r} attention")
+    if cfg.frontend.kind not in ("none", "vision"):
+        missing.append(f"the {cfg.frontend.kind} frontend")
+    if cfg.encoder_layers:
+        missing.append("encoder-decoder")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {', '.join(missing)}")
@@ -178,10 +185,16 @@ def _logit_probes(logits):
 
 def lm_init(gen: torch.Generator, cfg):
     """Random parameters drawn from ``gen`` on its device, in f32 (the
-    configs' ``param_dtype``)."""
+    configs' ``param_dtype``). A config with a frontend also draws its
+    projection ``params["frontend"]["w"]`` (embed_dim, d_model), after the
+    embedding and before the layers; one without draws nothing for it."""
     check_supported(cfg)
     moe_idx = set(cfg.moe_layer_indices())
     params = {"embed": embedding_init(gen, cfg.vocab_size, cfg.d_model)}
+    if cfg.frontend.kind != "none":
+        fe = cfg.frontend.embed_dim
+        params["frontend"] = {"w": lecun_init(gen, (fe, cfg.d_model),
+                                              fan_in=fe)}
     params["layers"] = [block_init(gen, cfg, i in moe_idx)
                         for i in range(cfg.num_layers)]
     params["final_norm"] = norm_init(cfg, cfg.d_model, gen.device)
@@ -190,23 +203,30 @@ def lm_init(gen: torch.Generator, cfg):
     return params
 
 
-def lm_apply(params, cfg, tokens, *, positions=None, cache=None,
-             mode: str = "train", use_kernel: bool = False,
+def lm_apply(params, cfg, tokens, *, embeds=None, positions=None,
+             cache=None, mode: str = "train", use_kernel: bool = False,
              last_only: bool = False, block_tables=None,
              paged_kernel: bool = False, telemetry: bool = False):
-    """tokens: (B, S) int; positions: (S,) shared or (B, S) per-row
-    (entries < 0 mark pad/inactive tokens that neither write nor read any
-    cache). ``cache`` is the per-layer list of paged pools (updated in
-    place) addressed through ``block_tables`` (B, blocks_per_row);
-    ``paged_kernel`` streams paged single-token decode through the kernel.
-    ``use_kernel`` routes the Soft-MoE layers through the kernels.
+    """tokens: (B, S) int; embeds: (B, N, E) precomputed frontend
+    embeddings (the vlm stub), projected and prepended to the token
+    embeddings, so positions and logits run over N + S; positions: (S,)
+    shared or (B, S) per-row (entries < 0 mark pad/inactive tokens that
+    neither write nor read any cache). ``cache`` is the per-layer list of
+    paged pools (updated in place) addressed through ``block_tables`` (B,
+    blocks_per_row); ``paged_kernel`` streams paged single-token decode
+    through the kernel. ``use_kernel`` routes the Soft-MoE layers through
+    the kernels.
     ``last_only`` unembeds only the final position. Returns (logits (B,
     S|1, V) f32, cache, aux), aux the sum of the blocks' auxiliary losses,
     plus ``telem`` with ``telemetry``: ``{"layers": {key: block telemetry},
     "logits": per-row probes}``, keyed by layer index, or on the
     train-mode scan path by segment start with leaves stacked (count,)."""
     check_supported(cfg)
-    x = embed(params["embed"], tokens, dtype_of(cfg.dtype))
+    dt = dtype_of(cfg.dtype)
+    x = embed(params["embed"], tokens, dt)
+    if embeds is not None and "frontend" in params:
+        fe = embeds.to(dt) @ params["frontend"]["w"].to(dt)
+        x = torch.cat([fe, x], dim=1)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
@@ -249,13 +269,16 @@ def lm_apply(params, cfg, tokens, *, positions=None, cache=None,
 
 def lm_loss(params, cfg, batch, use_kernel: bool = False,
             telemetry: bool = False):
-    """Next-token cross-entropy. batch: {"tokens": (B, S)[, "loss_mask"]}.
-    Returns (loss + aux, {"loss", "aux_loss"[, "telemetry"]}); the
-    telemetry tree of ``lm_apply`` leaves the loss unchanged."""
+    """Next-token cross-entropy. batch: {"tokens": (B, S)[, "embeds",
+    "loss_mask"]}; frontend embeds prepend non-text positions, and only
+    the text is scored. Returns (loss + aux, {"loss", "aux_loss"[,
+    "telemetry"]}); the telemetry tree of ``lm_apply`` leaves the loss
+    unchanged."""
     tokens = batch["tokens"]
-    out = lm_apply(params, cfg, tokens, mode="train", use_kernel=use_kernel,
-                   telemetry=telemetry)
+    out = lm_apply(params, cfg, tokens, embeds=batch.get("embeds"),
+                   mode="train", use_kernel=use_kernel, telemetry=telemetry)
     logits, _, aux = out[:3]
+    logits = logits[:, logits.shape[1] - tokens.shape[1]:]
     nll = cross_entropy(logits[:, :-1], tokens[:, 1:])
     mask = batch.get("loss_mask")
     if mask is not None:

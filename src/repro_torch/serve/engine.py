@@ -7,10 +7,11 @@ steps, every decode tick advances ALL live rows in one batched model
 call, and a row retires (its memory released, the next request
 admitted) the tick it samples EOS or exhausts its budget. Decode
 attention runs the paged decode-attention kernel on CUDA
-(``use_kernel=True``, the default) or the gather path. MoE LMs serve
-with per-row dropless routing (the sparse variants' serving modes) on
-the MoE einsum path, as in the reference; ``telemetry=True`` collects
-the model-interior telemetry of every call (``serve/telemetry.py``).
+(``use_kernel=True``, the default) or the gather path; MLA models always
+gather, as in the reference. MoE LMs serve with per-row dropless routing
+(the sparse variants' serving modes) on the MoE einsum path, as in the
+reference; ``telemetry=True`` collects the model-interior telemetry of
+every call (``serve/telemetry.py``).
 
 Not ported yet: the contiguous backend, speculative decoding, span
 tracing and the flight recorder (asking for them raises
@@ -32,24 +33,27 @@ from .sampling import GREEDY, SamplingParams, sample_tokens_checked
 from .scheduler import Request, Scheduler
 from .telemetry import TelemetryAggregator
 
-# MoE weights the reference reads in f32 whatever the compute dtype: the
-# sparse router and Soft MoE's phi and scale (their logits are f32)
-_ROUTING_WEIGHTS = ("router", "phi", "scale")
+# Layer weights the reference reads in f32 whatever the compute dtype, by
+# the sub-dict that holds them: a MoE layer's routing weights (the sparse
+# router, Soft MoE's phi and scale: their logits are f32) and MLA's
+# up-projections (its absorbed products run in f32)
+_F32_WEIGHTS = {"moe": ("router", "phi", "scale"), "attn": ("w_uk", "w_uv")}
 
 
 def serving_params(params, cfg):
     """Params as the serving programs use them: every weight cast once to
     the compute dtype, except the embedding tables, which the unembed
-    reads in f32, and a MoE layer's routing weights (``router``, ``phi``,
-    ``scale``), kept in their stored dtype because the routing logits are
-    computed from them in f32. The layers cast every other weight to the
-    activation dtype at each use, so this gives the same numbers without
-    the per-step casts."""
+    reads in f32, and the weights of ``_F32_WEIGHTS`` (a MoE layer's
+    ``router``, ``phi``, ``scale``; MLA's ``w_uk``, ``w_uv``), kept in
+    their stored dtype because the layers compute with them in f32. The
+    layers cast every other weight to the activation dtype at each use,
+    so this gives the same numbers without the per-step casts. A weight
+    already in the compute dtype is kept as it is, not copied."""
     dt = dtype_of(cfg.dtype)
 
-    def cast(tree, in_moe=False):
-        return {k: cast(v, k == "moe") if isinstance(v, dict)
-                else v if in_moe and k in _ROUTING_WEIGHTS else v.to(dt)
+    def cast(tree, keep=()):
+        return {k: cast(v, _F32_WEIGHTS.get(k, ())) if isinstance(v, dict)
+                else v if k in keep else v.to(dt)
                 for k, v in tree.items()}
 
     out = dict(params)

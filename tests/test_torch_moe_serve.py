@@ -2,7 +2,8 @@
 ``tests/test_batch_invariance.py`` and the probe cases of
 ``tests/test_telemetry.py``, on the paged backend (the port's one), for
 reduced ``granite-moe-1b-a400m`` (sparse Tokens Choice) and
-``granite-moe-1b-a400m+soft`` (deepseek-v2-lite waits for MLA).
+``granite-moe-1b-a400m+soft`` (deepseek-v2-lite, an MLA model, is served
+in ``tests/test_torch_mla_serve.py``).
 
 - Against the JAX paged engine (gather path) on the same converted f32
   weights: greedy tokens equal, and ``telemetry_snapshot()`` within 1e-4

@@ -110,21 +110,33 @@ def test_unported_engine_options_raise():
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, params, batch_size=2, max_len=32, device="cpu",
                         **kw)
-    # deepseek-v2-lite needs MLA, which is not ported: neither lm_init nor
-    # the engine takes it
+    # mamba2-370m needs SSM blocks, which are not ported: neither lm_init
+    # nor the engine takes it
+    mamba = reduced(get_config("mamba2-370m"))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        lm_init(torch.Generator(), mamba)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ServeEngine(mamba, params, batch_size=2, max_len=32, device="cpu")
+    # MLA is ported on no cache and the paged pool; its contiguous ring
+    # cache (a cache without block tables) is not
+    from repro_torch.layers.attention import attention_apply, attention_init
+
     deepseek = reduced(get_config("deepseek-v2-lite-16b"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm_init(torch.Generator(), deepseek)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(deepseek, params, batch_size=2, max_len=32,
-                    device="cpu")
+    attn = attention_init(torch.Generator(), deepseek)
+    x = torch.zeros(1, 2, deepseek.d_model)
+    ring = {"ckv": torch.zeros(1, 8, deepseek.attention.kv_lora_rank),
+            "krope": torch.zeros(1, 8, deepseek.attention.qk_rope_head_dim),
+            "pos": torch.full((1, 8), -1, dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="ring cache"):
+        attention_apply(attn, deepseek, x, cache=ring, mode="decode")
 
 
 def test_unported_moe_options_raise():
-    """An unknown MoE variant and deepseek's MLA LM (not ported) refuse,
-    and a raw kernel has no backward of its own (the autograd Functions
-    of kernels/ops.py carry the gradient; the routing-health kernel
-    carries none): each refuses, never runs half."""
+    """An unknown MoE variant and the SSM, hybrid and encoder-decoder LMs
+    (not ported) refuse, and a raw kernel has no backward of its own
+    (the autograd Functions of kernels/ops.py carry the gradient; the
+    routing-health kernel carries none): each refuses, never runs
+    half."""
     from repro_torch.configs import MoEConfig, get_config, reduced
     from repro_torch.core import moe_apply, moe_init
     from repro_torch.kernels.soft_moe_kernels import (
@@ -144,8 +156,9 @@ def test_unported_moe_options_raise():
         moe_init(gen, 16, other)
     with pytest.raises(ValueError, match="unknown MoE variant"):
         moe_apply(params, other, x)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm_init(torch.Generator(), reduced(get_config("deepseek-v2-lite-16b")))
+    for arch in ("mamba2-370m", "hymba-1.5b", "seamless-m4t-large-v2"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            lm_init(torch.Generator(), reduced(get_config(arch)))
 
     # A kernel wrapper handed non-CPU tensors that need a gradient refuses
     # before anything else (differentiate through kernels/ops.py instead);
