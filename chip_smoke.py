@@ -21,7 +21,10 @@ prints no result line):
    merge), its plain version and one PyTorch library call at the serving
    path's shapes, with one call's device time by launch, beside its bound
    and its design's (the live bytes plus the partials written and read);
-   then once more at pixtral-12b's serving shape (H=32, G=8, D=128).
+   then once more at pixtral-12b's serving shape (H=32, G=8, D=128) and
+   at hymba-1.5b's (H=25, G=5: five query heads a KV head, padded to 8 in
+   the kernel; D=64, window 1024 on a local layer, also checked on a
+   global one in bf16 and f32).
 4. soft-moe kernels: holds K1 (routing), K2 (combine from K1's stats)
    and K3 (online combine) against their plain PyTorch versions on the
    card at the Soft-MoE B/16 layer's shapes and at ragged ones (a token
@@ -180,8 +183,36 @@ prints no result line):
    closing save): step p50, tokens/s, peak memory, and the chunked
    attends counted (4 layers x 2 a step: the forward and the remat
    recompute).
+16. ssm: one Mamba-2 (SSD) layer in f32 at mamba2-370m's width (d 1024,
+   32 heads of 64, state 128) and hymba-1.5b's (d 1600, 50 heads, state
+   16), card against the host CPU within 1e-5 of max|ref|: no cache at S
+   = 2048; a cached chunked prefill (200 tokens, one row left-padded)
+   continued over 100 more with the carried state and conv ring; 4
+   decode steps; an inactive row whose ring and state stay bitwise as
+   they were on the card.
+17. ssm serve: full-width, full-depth mamba2-370m (48 attention-free
+   layers) and hymba-1.5b (32 layers of attention and Mamba-2 in
+   parallel, window 1024 on 30) with bf16 serving weights (the SSM's
+   A_log, D and dt_bias f32) through the paged engine over phase 12's
+   geometry and trace (hymba's with one more prompt of 1200 tokens, past
+   the window): every request finishes, the prefix cache is off, K7
+   launches 0 for mamba2 and decode steps x 32 for hymba; every SSM
+   layer's served outputs (chunked prefill, decode) against its no-cache
+   chunked form on the inputs the engine fed it (5e-2 of max|ref| per
+   layer), and every K7 call of hymba's kernel engine against the gather
+   path on the same operands (one bf16 step); end to end, recorded beside
+   each model's gain (its f32 logits' move under a 1e-6 nudge of the
+   embedding, over 1e-6): mamba2's served logits teacher forced against a
+   no-cache forward, hymba's kernel engine against its gather engine;
+   decode p50, tok/s, peak memory, the SSM rows' bytes, a profiled window
+   and ``batch_variance_probe`` (batch 4, recorded).
+18. ssm train: full-width, full-depth mamba2-370m (random f32 weights,
+   bf16 compute, f32 AdamW moments, remat) trained 5 Trainer steps on
+   batch 8 x 2048 of ``SyntheticLM`` (no closing save): a finite loss,
+   step p50, tokens/s, peak memory and a profiled step.
 
-The lines before the last carry the numbers: the card line as
+Each phase logs its wall time. The lines before the last carry the
+numbers: the card line as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 it, and one JSON object ``{"kernels": [...]}``. The last line is
 ``{"ok": true, "device": {...}}``.
@@ -359,16 +390,19 @@ def make_paged_case(torch, seed, B, H, G, D, block_size, max_tokens, dtype,
             qpos.cuda())
 
 
-def paged_bound_ms(q, k, tables, qpos, block_size, extra_bytes=0):
+def paged_bound_ms(q, k, tables, qpos, block_size, extra_bytes=0,
+                   window=None):
     """Least time on the card: bytes each input/output must move (live
-    keys only; plus ``extra_bytes``) over HBM bandwidth vs flops over the
-    f32 rate."""
+    keys only, those inside ``window`` of the query on a local layer;
+    plus ``extra_bytes``) over HBM bandwidth vs flops over the f32
+    rate."""
     B, H, D = q.shape
     G = k.shape[2]
     el = k.element_size()
-    live = [int(p) + 1 for p in qpos.tolist() if p >= 0]
-    keys = sum(live)
-    blocks = sum(-(-n // block_size) for n in live)
+    spans = [(max(0, p + 1 - window) if window else 0, p)
+             for p in qpos.tolist() if p >= 0]
+    keys = sum(p - lo + 1 for lo, p in spans)
+    blocks = sum(p // block_size - lo // block_size + 1 for lo, p in spans)
     nbytes = (q.numel() * q.element_size()          # q
               + keys * (2 * G * D * el + 4)         # K, V, pos of live keys
               + blocks * 4 + B * 4                  # live table entries, q_pos
@@ -458,8 +492,18 @@ def phase_kernels(torch):
          None, lens8),
         ("window global f32", 8, 14, 2, 64, 16, torch.float32, 1024, True,
          None, lens8),
+        # hymba-1.5b: 5 query heads a KV head (padded to HB = 8), window
+        # 1024 on 30 of its 32 layers
+        ("hymba local bf16", 8, 25, 5, 64, 16, torch.bfloat16, 1024, False,
+         None, lens8),
+        ("hymba local f32", 8, 25, 5, 64, 16, torch.float32, 1024, False,
+         None, lens8),
+        ("hymba global bf16", 8, 25, 5, 64, 16, torch.bfloat16, 1024, True,
+         None, lens8),
+        ("hymba global f32", 8, 25, 5, 64, 16, torch.float32, 1024, True,
+         None, lens8),
     ]
-    main = pixtral = {}
+    main = pixtral = hymba = {}
     for i, (label, B, H, G, D, bs, dt, window, is_global, kcfg, lens) in \
             enumerate(cases):
         max_tokens = 2112 if bs == 192 else 2048
@@ -501,6 +545,8 @@ def phase_kernels(torch):
             main = {"args": args, "err": err}
         elif label == "H32 G8 D128 bf16":
             pixtral = {"args": args}
+        elif label == "hymba local bf16":
+            hymba = {"args": args}
 
     # No fallback: malformed operands raise and launch nothing.
     q, k, v, pos, tables, qpos = main["args"]
@@ -537,22 +583,31 @@ def phase_kernels(torch):
     paged_times(torch, pixtral["args"], flush,
                 "pixtral-12b's serving shape B=8 H=32 G=8 D=128 block 16, "
                 "bf16")
+    # hymba-1.5b's local layers (30 of 32): window 1024 over rows of up to
+    # 2048 keys; the kernel masks the keys outside the window, and the
+    # bound counts only those inside it
+    paged_times(torch, hymba["args"], flush,
+                "hymba-1.5b's serving shape B=8 H=25 G=5 D=64 block 16, "
+                "window 1024 (local layer), bf16", window=1024)
     return {"paged_decode_attend": {"max_abs_err": main["err"], **row}}
 
 
-def paged_times(torch, args, flush, shape):
+def paged_times(torch, args, flush, shape, window=None):
     """K7 on ``args`` timed beside its plain version, one SDPA call over
     the gathered view (the library yardstick), its bound and its split
-    design's bound; logs them and returns the kernels-line numbers."""
+    design's bound; logs them and returns the kernels-line numbers.
+    ``window`` times a local layer's call (keys more than ``window``
+    before the query masked)."""
     from repro_torch.kernels.paged_attention import (
         paged_decode_attend,
         paged_decode_attend_ref,
     )
 
     q, k, v, pos, tables, qpos = args
-    kernel_ms = time_ms(torch, lambda: paged_decode_attend(*args),
+    kw = dict(window=window, is_global=window is None)
+    kernel_ms = time_ms(torch, lambda: paged_decode_attend(*args, **kw),
                         flush=flush)
-    plain_ms = time_ms(torch, lambda: paged_decode_attend_ref(*args),
+    plain_ms = time_ms(torch, lambda: paged_decode_attend_ref(*args, **kw),
                        reps=5, flush=flush)
     B, H, D = q.shape
     G = k.shape[2]
@@ -560,7 +615,11 @@ def paged_times(torch, args, flush, shape):
     idx = tables.long()
     kv_view = [t[idx].reshape(B, nb * bs, G, D) for t in (k, v)]
     kpos = pos[idx].reshape(B, nb * bs)
-    mask = ((kpos >= 0) & (kpos <= qpos[:, None].long()))[:, None, None, :]
+    qp = qpos[:, None].long()
+    mask = (kpos >= 0) & (kpos <= qp)
+    if window is not None:
+        mask = mask & (kpos > qp - window)
+    mask = mask[:, None, None, :]
     # G key/value heads, as the kernel reads them; SDPA groups the queries
     kg, vg = (t.transpose(1, 2).contiguous() for t in kv_view)
     qh = q[:, :, None, :]
@@ -568,12 +627,13 @@ def paged_times(torch, args, flush, shape):
     library_ms = time_ms(
         torch, lambda: sdpa(qh, kg, vg, attn_mask=mask, enable_gqa=True),
         flush=flush)
-    bound_ms, bound_by = paged_bound_ms(q, k, tables, qpos, bs)
+    bound_ms, bound_by = paged_bound_ms(q, k, tables, qpos, bs,
+                                        window=window)
     # the split-KV design also writes and reads its partials
     _, n_split, _ = paged_splits(tables, bs)
     part_bytes = B * n_split * H * (D + 2) * 4
     design_ms, design_by = paged_bound_ms(q, k, tables, qpos, bs,
-                                          2 * part_bytes)
+                                          2 * part_bytes, window=window)
     log(f"[kernel] paged_decode_attend timing ({shape}, L2 flushed): "
         f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms(sdpa with enable_gqa over the gathered view)="
@@ -3207,15 +3267,16 @@ def serving_weights(torch, cfg, seed=0):
     return params
 
 
-def check_serving_weights(torch):
+def check_serving_weights(torch, names=("deepseek-v2-lite-16b",
+                                        "pixtral-12b")):
     """``serving_weights`` equals ``serving_params(lm_init(...))`` bitwise
-    on the reduced deepseek and pixtral configs, leaf for leaf."""
+    on the reduced configs of ``names``, leaf for leaf."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import lm_init
     from repro_torch.optim import tree_leaves
     from repro_torch.serve.engine import serving_params
 
-    for name in ("deepseek-v2-lite-16b", "pixtral-12b"):
+    for name in names:
         cfg = reduced(get_config(name))
         want = serving_params(lm_init(
             torch.Generator(device="cuda").manual_seed(0), cfg), cfg)
@@ -3228,8 +3289,8 @@ def check_serving_weights(torch):
         if not same:
             raise AssertionError(f"serving_weights differs from "
                                  f"serving_params(lm_init) on reduced {name}")
-    log("[weights] serving_weights == serving_params(lm_init(...)) bitwise "
-        "on reduced deepseek-v2-lite-16b and pixtral-12b")
+    log(f"[weights] serving_weights == serving_params(lm_init(...)) bitwise "
+        f"on reduced {' and '.join(names)}")
 
 
 def count_params(params):
@@ -3696,34 +3757,540 @@ def phase_long_lm_train(torch, card):
     return {"p50": p50, "peak": peak, "busy": busy / pwall}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the Mamba-2 (SSD) layer, card against the host CPU in f32
+# ---------------------------------------------------------------------------
+
+
+def ssm_layer_params(torch, cfg, seed):
+    """``ssm_init`` params on the host, with the constant leaves (conv_b,
+    D, norm_scale, dt_bias) perturbed so that every leaf reaches the
+    output."""
+    from repro_torch.layers.ssm import ssm_init
+
+    gen = torch.Generator().manual_seed(seed)
+    p = ssm_init(gen, cfg)
+    for k in ("conv_b", "D", "norm_scale", "dt_bias"):
+        p[k] = p[k] + 0.3 * torch.randn(p[k].shape, generator=gen)
+    return p
+
+
+def phase_ssm(torch, card):
+    """One f32 Mamba-2 layer at mamba2-370m's and hymba-1.5b's widths, on
+    the card against the host CPU (same params, same inputs): no cache at
+    S = 2048; a cached chunked prefill continued over a second chunk, row
+    1 left-padded and row 2 inactive; 4 decode steps with row 2 inactive.
+    Each within 1e-5 of max|ref| (outputs, conv ring, state), and the
+    inactive row's ring and state bitwise unchanged on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.layers.ssm import init_ssm_cache, ssm_apply
+
+    tol = 1e-5
+    for seed, name in enumerate(("mamba2-370m", "hymba-1.5b")):
+        cfg = dataclasses.replace(get_config(name), dtype="float32")
+        s = cfg.ssm
+        host = ssm_layer_params(torch, cfg, seed)
+        dev = {k: v.cuda() for k, v in host.items()}
+        gen = torch.Generator().manual_seed(10 + seed)
+        errs = {}
+
+        def check(label, got, want):
+            rel = ((got.cpu() - want).abs().max() /
+                   want.abs().max()).item()
+            errs[label] = rel
+            if not rel <= tol:
+                raise AssertionError(f"ssm {name} {label}: card vs CPU "
+                                     f"{rel:.3e} of max|ref| > {tol}")
+
+        # no cache, S = 2048
+        x = torch.randn(2, 2048, cfg.d_model, generator=gen)
+        t0 = time.perf_counter()
+        want = ssm_apply(host, cfg, x)[0]
+        cpu_s = time.perf_counter() - t0
+        got = ssm_apply(dev, cfg, x.cuda())[0]
+        torch.cuda.synchronize()
+        check("no cache S=2048", got, want)
+
+        # cached: two prefill chunks (200 then 100 tokens), 4 decode steps
+        caches = [init_ssm_cache(cfg, 3, torch.float32, device=d)
+                  for d in ("cpu", "cuda")]
+        ring = torch.randn(caches[0]["conv"][2].shape, generator=gen)
+        state = torch.randn(caches[0]["state"][2].shape, generator=gen)
+        for c in caches:
+            c["conv"][2] = ring.to(c["conv"].device)
+            c["state"][2] = state.to(c["state"].device)
+        frozen = {k: v[2].clone() for k, v in caches[1].items()}
+        start = 0
+        for label, n in (("prefill chunk 1", 200), ("prefill chunk 2", 100),
+                         *((f"decode step {i}", 1) for i in range(4))):
+            pos = torch.arange(start, start + n, dtype=torch.int32)
+            pos = pos.expand(3, n).clone()
+            if start == 0:
+                pos[1, :37] = -1  # row 1's left pad
+            pos[2] = -1
+            x = torch.randn(3, n, cfg.d_model, generator=gen)
+            outs = [ssm_apply(p, cfg, x.to(c["conv"].device), cache=c,
+                              mode="decode", positions=pos.to(
+                                  c["conv"].device))[0]
+                    for p, c in ((host, caches[0]), (dev, caches[1]))]
+            torch.cuda.synchronize()
+            check(label, outs[1][:2], outs[0][:2])
+            for k in ("conv", "state"):
+                check(f"{label} {k}", caches[1][k][:2], caches[0][k][:2])
+                if not torch.equal(caches[1][k][2], frozen[k]):
+                    raise AssertionError(f"ssm {name}: the inactive row's "
+                                         f"{k} moved at {label}")
+            start += n
+        log(f"[ssm] {card}: {name} layer (d {cfg.d_model}, {s.num_heads(cfg.d_model)} "
+            f"heads of {s.head_dim}, state {s.state_dim}, chunk "
+            f"{s.chunk_size}) in f32, card vs host CPU, max|diff| / max|ref| "
+            f"(tol {tol:.0e}): "
+            + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+            + f"; the inactive row's ring and state bitwise unchanged; CPU "
+            f"no-cache pass {cpu_s:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: mamba2-370m and hymba-1.5b served at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def engine_logits(torch, eng):
+    """Wrap ``eng``'s sampling pass so that each decoding row's logits
+    (the distribution its next token is drawn from) are kept by request:
+    ``{id(req): [logits, ...]}`` in generation order."""
+    kept = {}
+    inner = eng._do_decode
+
+    def sample():
+        for e in eng.sched.decode_entries():
+            kept.setdefault(id(e.req), []).append(eng._logits[e.slot].clone())
+        return inner()
+
+    eng._do_decode = sample
+    return kept
+
+
+def model_gain(torch, cfg, prompt):
+    """How far the model amplifies rounding: the move of its f32 logits
+    over ``prompt`` (max|diff| / max|ref|) under a 1e-6 relative
+    perturbation of the embedding table, over 1e-6."""
+    import dataclasses
+
+    from repro_torch.models import lm_apply
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    params = serving_weights(torch, f32)
+    seq = torch.tensor([prompt], device="cuda")
+    with torch.inference_mode():
+        ref = lm_apply(params, f32, seq)[0][0]
+        table = params["embed"]["table"]
+        noise = torch.randn(table.shape, device="cuda", generator=torch.
+                            Generator(device="cuda").manual_seed(5))
+        params["embed"] = {"table": table * (1 + 1e-6 * noise)}
+        moved = lm_apply(params, f32, seq)[0][0]
+    return ((moved - ref).abs().max() / ref.abs().max()).item() / 1e-6
+
+
+def ssm_served_logits(torch, card, cfg, params, reqs, kept, gain):
+    """Each request's served logits against a no-cache forward over its
+    prompt and the tokens it generated (the chunked training form),
+    recorded beside the model's gain (``model_gain``): the random-weight
+    Mamba-2 layers amplify rounding, so ``ssm_layers_teacher_forced``
+    holds the served path layer by layer instead."""
+    from repro_torch.models import lm_apply
+
+    rels, rows, agree = [], 0, 0
+    with torch.inference_mode():
+        for r in reqs:
+            seq = torch.tensor([r.prompt + r.out[:-1]], device="cuda")
+            ref = lm_apply(params, cfg, seq)[0][0, len(r.prompt) - 1:]
+            mine = torch.stack(kept[id(r)])
+            rels.append((mine - ref).abs().max().item() /
+                        ref.abs().max().item())
+            rows += len(mine)
+            agree += int((mine.argmax(-1) == ref.argmax(-1)).sum())
+    log(f"[ssm-serve] {card}: {cfg.name}, served logits vs a no-cache "
+        f"forward over each whole sequence, teacher forced (recorded): "
+        f"{rows} row logits; max|diff| / max|ref| at most {max(rels):.3e}, "
+        f"median {statistics.median(rels):.3e}; identical greedy tokens "
+        f"{agree}/{rows} = {agree / rows:.4f}; the f32 model moves "
+        f"{gain:.1f}x a 1e-6 relative perturbation of its embedding")
+    if not all(math.isfinite(r) for r in rels):
+        raise AssertionError(f"{cfg.name}: non-finite served logits")
+
+
+class K7InSitu:
+    """Context in which every K7 call of the attention layers is also run
+    on the gather path (``use_kernel=False``'s route) on the same
+    operands; the list it yields collects, per call, the live rows'
+    worst |kernel - gather| - 2^-7 |gather| (device scalars: no sync)."""
+
+    def __init__(self, torch):
+        from repro_torch.layers import attention
+
+        self.torch, self.attn = torch, attention
+        self.inner = attention.paged_decode_attend
+        self.calls = []
+
+    def __enter__(self):
+        attn, inner, calls = self.attn, self.inner, self.calls
+
+        def checked(q, k, v, pos, tables, qpos, *, causal, window,
+                    is_global, **kw):
+            out = inner(q, k, v, pos, tables, qpos, causal=causal,
+                        window=window, is_global=is_global, **kw)
+            view, kpos = attn._paged_view({"k": k, "v": v, "pos": pos},
+                                          tables)
+            ref = attn._attend_any(q[:, None], view["k"], view["v"],
+                                   qpos[:, None], kpos, causal, window,
+                                   is_global=is_global)[:, 0]
+            live = qpos >= 0
+            o, r = out[live].float(), ref[live].float()
+            calls.append(((o - r).abs() - 2.0**-7 * r.abs()).max())
+            return out
+
+        attn.paged_decode_attend = checked
+        return calls
+
+    def __exit__(self, *exc):
+        self.attn.paged_decode_attend = self.inner
+        return False
+
+
+def k7_in_situ_check(torch, card, name, calls):
+    """Every checked K7 call within one bf16 step (2^-7 |gather|, plus
+    1e-5) of the gather path, as phase 3 holds K7 to its plain version."""
+    worst = torch.stack(calls).max().item()
+    log(f"[ssm-serve] {card}: {name}, every K7 call of the kernel engine's "
+        f"teacher-forced run against the gather path on the same operands "
+        f"({len(calls)} calls, all layers and decode steps): worst "
+        f"|kernel - gather| - 2^-7 |gather| = {worst:.3e} (tol 1e-5)")
+    if not calls or not worst <= 1e-5:
+        raise AssertionError(f"{name}: a K7 call left one bf16 step of the "
+                             f"gather path")
+
+
+def ssm_layers_teacher_forced(torch, card, cfg, params, prompt, max_new):
+    """Serve ``prompt`` alone (batch 2: its decode steps carry an inactive
+    row) with every SSM layer's input and output rows captured at each
+    call (chunked prefill, then decode), then hold each layer's outputs
+    over the request's tokens against that layer's no-cache chunked form
+    on the captured inputs: the layer is fed the engine's own stream, so
+    no error is carried from layer to layer. Bound 5e-2 of max|ref| per
+    layer (bf16)."""
+    import repro_torch.models.lm as lm_mod
+    from repro_torch.serve import Request, ServeEngine
+
+    calls = []
+    inner = lm_mod.ssm_apply
+
+    def capture(p, c, x, **kw):
+        out = inner(p, c, x, **kw)
+        calls.append((x, out[0], kw["positions"]))
+        return out
+
+    lm_mod.ssm_apply = capture
+    try:
+        eng = ServeEngine(cfg, params, batch_size=2, max_len=2048,
+                          block_size=16, device="cuda")
+        req = Request(prompt=list(prompt), max_new_tokens=max_new)
+        eng.submit(req)
+        eng.run()
+    finally:
+        lm_mod.ssm_apply = inner
+    xs = [[] for _ in range(cfg.num_layers)]
+    ys = [[] for _ in range(cfg.num_layers)]
+    for i, (x, y, pos) in enumerate(calls):
+        live = (pos if pos.ndim == 2 else pos[None].expand(x.shape[:2])) >= 0
+        xs[i % cfg.num_layers].append(x[live])
+        ys[i % cfg.num_layers].append(y[live])
+    rels = []
+    with torch.inference_mode():
+        for i in range(cfg.num_layers):
+            x, y = torch.cat(xs[i]), torch.cat(ys[i])
+            ref = inner(params["layers"][i]["ssm"], cfg, x[None])[0][0]
+            rels.append(((y - ref).abs().max() / ref.abs().max()).item())
+    n_tok = len(prompt) + max_new - 1
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    log(f"[ssm-serve] {card}: {cfg.name}, each SSM layer's served outputs "
+        f"(chunked prefill of {len(prompt)} tokens in chunks of 32, "
+        f"{max_new - 1} decode steps) vs its no-cache chunked form on the "
+        f"same inputs, {n_tok} tokens, {len(calls) // cfg.num_layers} calls "
+        f"a layer: max|diff| / max|ref| at most {rels[worst]:.3e} (layer "
+        f"{worst}; tol 5e-2), median {statistics.median(rels):.3e}")
+    if len(calls) != cfg.num_layers * (len(calls) // cfg.num_layers) or \
+            any(torch.cat(x).shape[0] != n_tok for x in xs) or \
+            not all(math.isfinite(r) for r in rels) or max(rels) > 5e-2:
+        raise AssertionError(f"{cfg.name}: served SSM layers disagree with "
+                             f"their chunked form")
+
+
+def phase_ssm_serve(torch, card):
+    """The paged engine serves mamba2-370m (attention-free: K7 never runs)
+    and hymba-1.5b (K7 on all 32 layers, window 1024 on 30) at full width
+    and depth, bf16 weights with the SSM's A_log, D and dt_bias in f32;
+    the prefix cache is off for both. Every SSM layer teacher forced
+    against its chunked training form (``ssm_layers_teacher_forced``),
+    and every K7 call of hymba's kernel engine against the gather path on
+    the same operands (``K7InSitu``); end to end, hymba's kernel engine
+    against its gather engine and mamba2's served logits against a
+    no-cache forward are recorded beside each model's gain
+    (``model_gain``): the random-weight models amplify rounding past the
+    5e-2 serving bound."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_decode_attend
+    from repro_torch.serve import Request, ServeEngine, batch_variance_probe
+
+    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda")
+    max_new = 16
+    launches = 0
+    check_serving_weights(torch, ("mamba2-370m", "hymba-1.5b"))
+    for name in ("mamba2-370m", "hymba-1.5b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        params = serving_weights(torch, cfg)
+        torch.cuda.synchronize()
+        n_params, n_bytes = count_params(params)
+        prompts = moe_serve_requests(np, cfg.vocab_size)
+        if cfg.has_attention():
+            # one prompt past the window: the local layers mask its head
+            prompts.append(np.random.RandomState(3).randint(
+                1, cfg.vocab_size, size=1200).tolist())
+        s = cfg.ssm
+        a = cfg.attention
+        shape = (f"{cfg.num_layers} layers, d {cfg.d_model}, SSM "
+                 f"{s.num_heads(cfg.d_model)} heads of {s.head_dim}, state "
+                 f"{s.state_dim}")
+        if a is not None:
+            shape += (f"; attention {a.num_heads} heads / {a.num_kv_heads} "
+                      f"KV x {a.head_dim}, window {a.sliding_window}, "
+                      f"global every {a.global_every}; d_ff {cfg.d_ff}")
+        log(f"[ssm-serve] {name}: {shape}; vocab {cfg.vocab_size}; "
+            f"{n_params} params ({n_params / 1e9:.4f} B) as served: "
+            f"{n_bytes / 2**30:.3f} GiB (built layer by layer in "
+            f"{time.perf_counter() - t0:.1f} s); trace "
+            f"{[len(p) for p in prompts]} prompt tokens, {max_new} new")
+        warm = ServeEngine(cfg, params, **geo)
+        run_engine(torch, warm, prompts[1:2], 2)
+        del warm
+        eng = ServeEngine(cfg, params, **geo)
+        kept = engine_logits(torch, eng)
+        t_run = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        paged_decode_attend.launches = 0
+        reqs, wall, decode_s = run_engine(torch, eng, prompts, max_new)
+        k7 = paged_decode_attend.launches
+        peak = torch.cuda.max_memory_allocated()
+        done = all(r.done and r.finish_reason == "length" for r in reqs)
+        want = eng.decode_steps * cfg.num_layers if cfg.has_attention() \
+            else 0
+        n_tok = sum(len(r.out) for r in reqs)
+        be = eng.backend
+        log(f"[ssm-serve] {name}: {len(reqs)} requests done={done}, "
+            f"{eng.decode_steps} decode steps, {eng.preemptions} "
+            f"preemptions; prefix cache {be.prefix} (off: SSM state is not "
+            f"in the blocks); K7 launches {k7} (want {want})")
+        log(f"[ssm-serve] {card}: {name} served (batch 8, max_len 2048, "
+            f"block 16): {n_tok / wall:.1f} tok/s, decode step p50 "
+            f"{statistics.median(decode_s) * 1e3:.2f} ms; peak device memory "
+            f"{peak / 2**30:.3f} GiB; SSM rows {be.ssm_bytes() / 2**20:.3f} "
+            f"MiB ({be.ssm_bytes()} bytes, {cfg.num_layers} layers x 8 "
+            f"slots), KV {be.bytes_per_block()} bytes a block, "
+            f"peak_cache_bytes {eng.peak_cache_bytes()}")
+        if not done or be.prefix is not None or k7 != want or \
+                (cfg.has_attention() and k7 == 0):
+            raise AssertionError(f"{name} serving: unfinished requests, a "
+                                 f"prefix cache, or K7 launches {k7} != "
+                                 f"{want}")
+        launches += k7
+        t_checks = time.perf_counter()
+        gain = model_gain(torch, cfg, prompts[0])
+        if cfg.has_attention():
+            # prefill in chunks of 256 here: fewer ticks, the same decode
+            oracle = ServeEngine(cfg, params, use_kernel=False,
+                                 prefill_chunk=256, **geo)
+            with K7InSitu(torch) as calls:
+                ticks = teacher_forced(
+                    torch, ServeEngine(cfg, params, prefill_chunk=256, **geo),
+                    oracle, prompts, max_new)
+            rels = [d / r for _, d, _, r in ticks]
+            rows = sum(len(t[0]) for t in ticks)
+            agree = sum(t[2] for t in ticks)
+            log(f"[ssm-serve] {card}: {name}, kernel vs gather engine, "
+                f"teacher forced (recorded): {rows} row logits; max|diff| / "
+                f"max|ref| at most {max(rels):.3e}, median "
+                f"{statistics.median(rels):.3e}; identical greedy tokens "
+                f"{agree}/{rows} = {agree / rows:.4f}; the f32 model moves "
+                f"{gain:.1f}x a 1e-6 relative perturbation of its embedding")
+            k7_in_situ_check(torch, card, name, calls)
+            if not all(math.isfinite(r) for r in rels):
+                raise AssertionError(f"{name}: non-finite served logits")
+            del oracle
+        else:
+            ssm_served_logits(torch, card, cfg, params, reqs, kept, gain)
+        ssm_layers_teacher_forced(torch, card, cfg, params, prompts[0],
+                                  max_new)
+        del eng, reqs, kept
+        t_prof = time.perf_counter()
+        prof_eng = ServeEngine(cfg, params, **geo)
+        for pr in prompts:
+            prof_eng.submit(Request(prompt=list(pr), max_new_tokens=max_new))
+        for _ in range(5):
+            prof_eng.step()
+        # 3 ticks: reading back the profiler's events costs seconds a tick
+        tick_profile(torch, prof_eng, 3, f"ssm serve {card}: {name}, 3 "
+                     f"ticks (ticks 6-8 of the trace)")
+        del prof_eng
+        t_probe = time.perf_counter()
+        res = batch_variance_probe(cfg, params, [1, 2, 3, 4], batch_size=4,
+                                   max_new_tokens=8, max_len=64)
+        top = sorted(res["per_stat"].items(), key=lambda kv: -kv[1])[:3]
+        log(f"[ssm-serve] {card}: batch_variance_probe {name} (batch 4): "
+            f"divergence {res['divergence']:.3e} over "
+            f"{res['steps_compared']} steps; largest "
+            + " ".join(f"{k}={v:.3e}" for k, v in top))
+        if res["steps_compared"] == 0:
+            raise AssertionError("the probe compared no decode step")
+        log(f"[ssm-serve] {name}: wall seconds: served trace "
+            f"{t_checks - t_run:.1f}, checks {t_prof - t_checks:.1f}, "
+            f"profiled window {t_probe - t_prof:.1f}, probe "
+            f"{time.perf_counter() - t_probe:.1f}")
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paged_decode_attend": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: mamba2-370m trained at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def phase_ssm_train(torch, card):
+    """mamba2-370m at full width and depth trained on batch 8 x 2048 of
+    SyntheticLM through the remat path: 5 Trainer steps, no closing save,
+    then one profiled step."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm_init, lm_loss
+    from repro_torch.optim import OptimizerConfig, tree_leaves
+    from repro_torch.train import (
+        Trainer,
+        TrainerConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("mamba2-370m")
+    batch, seq = 8, 2048
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             lambda g: lm_init(g, cfg))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                       batch_size=batch, seed=0, device="cuda")
+    log(f"[ssm-train] {cfg.name}: {cfg.num_layers} Mamba-2 layers, d "
+        f"{cfg.d_model}, state {cfg.ssm.state_dim}, chunk "
+        f"{cfg.ssm.chunk_size}, vocab {cfg.vocab_size}; scan_layers="
+        f"{cfg.scan_layers} remat={cfg.remat}; {n_params} params "
+        f"({n_params / 1e9:.4f} B); train state {state_bytes / 2**30:.3f} "
+        f"GiB (init {time.perf_counter() - t0:.1f} s); compute {cfg.dtype}, "
+        f"batch {batch} x {seq} tokens of SyntheticLM")
+    ckpt_dir = ROOT / "build" / "chip_smoke_ssm_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_steps = 5
+    trainer = Trainer(
+        TrainerConfig(total_steps=n_steps, checkpoint_every=10**9,
+                      checkpoint_dir=str(ckpt_dir), keep_checkpoints=1,
+                      log_every=1),
+        lambda p, b: lm_loss(p, cfg, b, telemetry=True), None,
+        OptimizerConfig(), data)
+    trainer.ckpt.save = lambda *a, **kw: None  # no closing save
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.run(torch.Generator(device="cuda").manual_seed(0),
+                        start_state=state)
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    hist = trainer.metrics_history
+    times = [m["step_time"] for m in hist]
+    p50 = statistics.median(times)
+    log(f"[ssm-train] {card}: {cfg.name} Trainer steps 0-{n_steps - 1} "
+        f"(telemetry on, no closing save): step p50 {p50 * 1e3:.2f} ms (min "
+        f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = "
+        f"{batch * seq / p50:.1f} tokens/s; loss {hist[0]['loss']:.4f} -> "
+        f"{hist[-1]['loss']:.4f} (ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.4f}); peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    if not all(math.isfinite(m["loss"]) for m in hist):
+        raise AssertionError("the mamba2 loss is not finite")
+    # where the time goes: one profiled step
+    step = make_train_step(lambda p, b: lm_loss(p, cfg, b, telemetry=True),
+                           OptimizerConfig())
+    state, _, _ = profile_step(torch, step, state, data.batch(n_steps),
+                               f"ssm train {card} ({cfg.name})")
+    del state, trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"p50": p50, "peak": peak}
+
+
 def _get(tree, path):
     for k in path:
         tree = tree[k]
     return tree
 
 
+def timed(fn, *args):
+    """Run one phase and log its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
 def main():
     try:
         import torch
 
-        card = phase_device(torch)
-        phase_build()
-        kern = phase_kernels(torch)
-        kern.update(phase_soft_moe_kernels(torch))
-        kern.update(phase_soft_moe_bwd_kernels(torch))
-        kern.update(phase_routing_health(torch))
-        launches = phase_serve(torch, card)
-        launches.update(phase_vit(torch, card))
-        phase_sparse_vit(torch, card)
-        launches.update(phase_train(torch, card))
-        lm_launches, soft_summary = phase_lm_train(torch, card)
+        t0 = time.perf_counter()
+        card = timed(phase_device, torch)
+        timed(phase_build)
+        kern = timed(phase_kernels, torch)
+        kern.update(timed(phase_soft_moe_kernels, torch))
+        kern.update(timed(phase_soft_moe_bwd_kernels, torch))
+        kern.update(timed(phase_routing_health, torch))
+        launches = timed(phase_serve, torch, card)
+        launches.update(timed(phase_vit, torch, card))
+        timed(phase_sparse_vit, torch, card)
+        launches.update(timed(phase_train, torch, card))
+        lm_launches, soft_summary = timed(phase_lm_train, torch, card)
         launches.update(lm_launches)
-        phase_sparse_lm_train(torch, card, soft_summary)
-        phase_moe_serve(torch, card)
-        phase_mla_serve(torch, card)
-        launches["paged_decode_attend"] += phase_vlm(
-            torch, card)["paged_decode_attend"]
-        phase_long_lm_train(torch, card)
+        timed(phase_sparse_lm_train, torch, card, soft_summary)
+        timed(phase_moe_serve, torch, card)
+        timed(phase_mla_serve, torch, card)
+        launches["paged_decode_attend"] += timed(
+            phase_vlm, torch, card)["paged_decode_attend"]
+        timed(phase_long_lm_train, torch, card)
+        timed(phase_ssm, torch, card)
+        launches["paged_decode_attend"] += timed(
+            phase_ssm_serve, torch, card)["paged_decode_attend"]
+        timed(phase_ssm_train, torch, card)
+        log(f"[phase] all phases: {time.perf_counter() - t0:.1f} s wall")
     except Exception as e:  # noqa: BLE001 — report which phase failed
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr,
               flush=True)

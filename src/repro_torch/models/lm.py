@@ -1,6 +1,7 @@
-"""Decoder-only LM, the dense, MoE and vlm families with GQA or MLA
-attention, counterpart of ``repro/models/lm.py``; its transformer block
-also carries the MoE layers of the ViT (``models/vit.py``).
+"""Decoder-only LM, the dense, MoE, vlm, SSM and hybrid families with
+GQA or MLA attention and Mamba-2 (SSD) layers, counterpart of
+``repro/models/lm.py``; its transformer block also carries the MoE
+layers of the ViT (``models/vit.py``).
 
 Params hold one dict per layer under ``"layers"``; the JAX package stacks
 the layers of each homogeneous segment on a leading axis instead
@@ -13,8 +14,10 @@ segment's first layer; otherwise (serving, or ``scan_layers`` off, as
 ``reduced`` sets it) each layer's telemetry is keyed by its index, as
 the JAX unrolled path keys it. The vision frontend is the reference's
 stub: precomputed patch embeddings projected by ``params["frontend"]``
-and prepended to the tokens. SSM blocks, the audio frontend and
-encoder-decoder models wait for later slices (``check_supported``
+and prepended to the tokens. A block runs attention, a Mamba-2 layer
+(``layers/ssm.py``; mamba2 has no attention and no MLP), or both in
+parallel with their outputs mean-fused (Hymba). The audio frontend and
+encoder-decoder models wait for a later slice (``check_supported``
 raises for them). MoE layers run any
 variant of ``core.moe_apply``: Soft MoE, the sparse baselines (whose
 routing scope follows ``mode``: coupled groups in train mode, per-row
@@ -33,6 +36,7 @@ from ..layers.attention import attention_apply, attention_init
 from ..layers.common import dtype_of, lecun_init, norm_apply, norm_init
 from ..layers.embedding import embed, embedding_init, unembed
 from ..layers.mlp import mlp_apply, mlp_init
+from ..layers.ssm import ssm_apply, ssm_init
 
 
 def segment_plan(cfg, n_layers: Optional[int] = None
@@ -54,11 +58,7 @@ def segment_plan(cfg, n_layers: Optional[int] = None
 def check_supported(cfg):
     """Raise for the parts of the config family the port lacks so far."""
     missing = []
-    if cfg.has_ssm():
-        missing.append("SSM blocks")
-    if not cfg.has_attention():
-        missing.append("attention-free blocks")
-    elif cfg.attention.kind not in ("gqa", "mla"):
+    if cfg.has_attention() and cfg.attention.kind not in ("gqa", "mla"):
         missing.append(f"{cfg.attention.kind!r} attention")
     if cfg.frontend.kind not in ("none", "vision"):
         missing.append(f"the {cfg.frontend.kind} frontend")
@@ -72,7 +72,11 @@ def check_supported(cfg):
 def block_init(gen: torch.Generator, cfg, is_moe: bool = False):
     d = cfg.d_model
     dev = gen.device
-    p = {"norm1": norm_init(cfg, d, dev), "attn": attention_init(gen, cfg)}
+    p = {"norm1": norm_init(cfg, d, dev)}
+    if cfg.has_attention():
+        p["attn"] = attention_init(gen, cfg)
+    if cfg.has_ssm():
+        p["ssm"] = ssm_init(gen, cfg)
     if is_moe:
         p["norm2"] = norm_init(cfg, d, dev)
         p["moe"] = moe_init(gen, d, resolve_moe_cfg(cfg.moe, cfg.d_ff),
@@ -96,19 +100,40 @@ def block_apply(params, cfg, x, *, is_moe: bool = False,
     launches nothing for it). ``block_tables`` (B, blocks_per_row)
     switches the attention cache to the paged block-pool layout;
     ``paged_kernel`` routes paged single-token decode through the paged
-    decode-attention kernel. ``telem`` holds detached f32 scalars: the
-    residual RMS, the attention output's absmax and, on a MoE block, the
-    layer's routing health under ``"moe"``; the block's output is the same
-    bitwise either way."""
+    decode-attention kernel. The cache dict holds ``"attn"`` and/or
+    ``"ssm"`` (the slot rows of ``layers/ssm.py``); a hybrid block's
+    attention and SSM outputs are averaged. ``telem`` holds detached f32
+    scalars: the residual RMS, the attention output's absmax (with
+    attention) and, on a MoE block, the layer's routing health under
+    ``"moe"``; the block's output is the same bitwise either way."""
     aux = 0.0
+    new_cache = None if cache is None else {}
     xn = norm_apply(params["norm1"], cfg, x)
-    a_out, a_cache = attention_apply(
-        params["attn"], cfg, xn, layer_is_global=is_global,
-        positions=positions,
-        cache=None if cache is None else cache.get("attn"),
-        mode=mode, block_tables=block_tables, paged_kernel=paged_kernel,
-    )
-    x = x + a_out
+    a_out = mix = None
+    if cfg.has_attention():
+        a_out, a_cache = attention_apply(
+            params["attn"], cfg, xn, layer_is_global=is_global,
+            positions=positions,
+            cache=None if cache is None else cache.get("attn"),
+            mode=mode, block_tables=block_tables, paged_kernel=paged_kernel,
+        )
+        mix = a_out
+        if new_cache is not None:
+            new_cache["attn"] = a_cache
+    if cfg.has_ssm():
+        s_out, s_cache = ssm_apply(
+            params["ssm"], cfg, xn,
+            cache=None if cache is None else cache.get("ssm"), mode=mode,
+            positions=positions)
+        if mix is None:
+            mix = s_out
+        elif cfg.hybrid_parallel:
+            mix = (mix + s_out) * 0.5  # Hymba: mean-fuse the parallel heads
+        else:
+            mix = mix + s_out
+        if new_cache is not None:
+            new_cache["ssm"] = s_cache
+    x = x + mix
     moe_telem = None
     if "norm2" in params:
         xn = norm_apply(params["norm2"], cfg, x)
@@ -122,14 +147,14 @@ def block_apply(params, cfg, x, *, is_moe: bool = False,
         else:
             m_out = mlp_apply(params["mlp"], xn, cfg.act)
         x = x + m_out
-    new_cache = None if cache is None else {"attn": a_cache}
     if not telemetry:
         return x, new_cache, aux
     telem = {
         "residual_rms": torch.sqrt(torch.mean(torch.square(
             x.detach().float()))),
-        "max_attn_out": a_out.detach().float().abs().max(),
     }
+    if a_out is not None:
+        telem["max_attn_out"] = a_out.detach().float().abs().max()
     if moe_telem is not None:
         telem["moe"] = moe_telem
     return x, new_cache, aux, telem
@@ -237,7 +262,8 @@ def lm_apply(params, cfg, tokens, *, embeds=None, positions=None,
         seg_telem = []
         for i in range(start, start + count):
             p = params["layers"][i]
-            is_global = cfg.attention.is_global_layer(i)
+            is_global = (cfg.attention.is_global_layer(i)
+                         if cfg.has_attention() else True)
             if scan:
                 x, a, t = _train_block(p, cfg, x, is_moe, is_global,
                                        positions, use_kernel, telemetry,

@@ -22,10 +22,12 @@ import torch
 
 from ..layers.attention import init_paged_kv_cache
 from ..layers.common import resolve_device
+from ..layers.ssm import init_ssm_cache
 from .cache_pool import CacheBackend
 from .prefix_cache import RadixPrefixCache
 from .programs import (
     clear_blocks_program,
+    clear_ssm_slot_program,
     copy_blocks_program,
     make_decode_step_paged,
     make_prefill_chunk_paged,
@@ -99,23 +101,35 @@ class BlockManager:
 
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int,
-                     dtype=torch.bfloat16, *, device):
-    """Per-layer cache list: every attention layer gets a (num_blocks,
-    block_size, ...) block pool SHARED by all rows."""
+                     num_slots: int = 0, dtype=torch.bfloat16, *, device):
+    """Per-layer cache list: attention layers get a (num_blocks,
+    block_size, ...) block pool SHARED by all rows; SSM layers keep
+    (num_slots, ...) per-row recurrent state (constant size: nothing to
+    page), so an SSM arch needs ``num_slots`` >= 1."""
     device = resolve_device(device)
-    return [{"attn": init_paged_kv_cache(cfg, num_blocks, block_size,
-                                         dtype, device=device)}
-            for _ in range(cfg.num_layers)]
+    if cfg.has_ssm() and num_slots < 1:
+        raise ValueError(f"{cfg.name}: SSM layers need num_slots >= 1 rows")
+    caches = []
+    for _ in range(cfg.num_layers):
+        c = {}
+        if cfg.has_attention():
+            c["attn"] = init_paged_kv_cache(cfg, num_blocks, block_size,
+                                            dtype, device=device)
+        if cfg.has_ssm():
+            c["ssm"] = init_ssm_cache(cfg, num_slots, dtype, device=device)
+        caches.append(c)
+    return caches
 
 
 class PagedBackend(CacheBackend):
     """Paged cache backend: block-table addressing + radix prefix cache.
 
-    Admission needs a free slot AND enough free blocks for the uncached
-    part of the prompt — NOT a whole max_len reservation. Decode
-    allocates one block at a time as a row crosses block boundaries;
-    when the free list runs dry the prefix cache evicts LRU-first, and if
-    that is not enough the engine preempts the row (requeues it).
+    Admission needs a free slot (decode batch row and SSM state) AND
+    enough free blocks for the uncached part of the prompt — NOT a whole
+    max_len reservation. Decode allocates one block at a time as a row
+    crosses block boundaries; when the free list runs dry the prefix cache
+    evicts LRU-first, and if that is not enough the engine preempts the
+    row (requeues it).
     """
 
     def __init__(self, cfg, num_slots: int, max_len: int,
@@ -134,11 +148,15 @@ class PagedBackend(CacheBackend):
             # size it down to get prompt-proportional memory
             num_blocks = num_slots * self.blocks_per_row + 1
         self.num_blocks = num_blocks
-        self.cache = init_paged_cache(cfg, num_blocks, block_size, dtype,
-                                      device=self.device)
+        self.cache = init_paged_cache(cfg, num_blocks, block_size,
+                                      num_slots, dtype, device=self.device)
         self.mgr = BlockManager(num_blocks)
+        # Prefix reuse splices cached KV under a new request, sound only
+        # when all cross-token state lives in the blocks: recurrent SSM
+        # state does not, so SSM and hybrid archs run paged but uncached.
         self.prefix: Optional[RadixPrefixCache] = (
-            RadixPrefixCache(block_size) if prefix_cache else None
+            RadixPrefixCache(block_size)
+            if prefix_cache and not cfg.has_ssm() else None
         )
         self.tables = np.zeros((num_slots, self.blocks_per_row), np.int32)
         self._tables_dev = None  # rebuilt lazily when tables change
@@ -196,6 +214,7 @@ class PagedBackend(CacheBackend):
         fresh = self.mgr.alloc(need)
         self._invalidate_blocks(fresh)
         slot = self._free_slots.pop()
+        clear_ssm_slot_program(self.cache, slot)
         row = self.tables[slot]
         row[:] = 0
         row[: len(cached)] = cached
@@ -278,13 +297,20 @@ class PagedBackend(CacheBackend):
 
     def bytes_per_block(self) -> int:
         return sum(t.numel() * t.element_size() // self.num_blocks
-                   for layer in self.cache for t in layer["attn"].values())
+                   for layer in self.cache if "attn" in layer
+                   for t in layer["attn"].values())
+
+    def ssm_bytes(self) -> int:
+        """Bytes of the SSM rows (every slot's conv ring and state)."""
+        return sum(t.numel() * t.element_size()
+                   for layer in self.cache if "ssm" in layer
+                   for t in layer["ssm"].values())
 
     def peak_cache_bytes(self) -> int:
-        """Peak live-request block footprint x bytes/block: what a
-        right-sized pool would have needed for the traffic. Tree-retained
-        (evictable) blocks are excluded."""
-        return self.live_block_hw * self.bytes_per_block()
+        """Peak live-request block footprint x bytes/block, plus the
+        constant SSM rows: what a right-sized pool would have needed for
+        the traffic. Tree-retained (evictable) blocks are excluded."""
+        return self.live_block_hw * self.bytes_per_block() + self.ssm_bytes()
 
     def _touch_live_hw(self):
         # unique physical blocks: a prefix-shared block backing several

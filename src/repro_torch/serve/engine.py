@@ -8,7 +8,9 @@ call, and a row retires (its memory released, the next request
 admitted) the tick it samples EOS or exhausts its budget. Decode
 attention runs the paged decode-attention kernel on CUDA
 (``use_kernel=True``, the default) or the gather path; MLA models always
-gather, as in the reference. MoE LMs serve with per-row dropless routing
+gather, as in the reference. SSM and hybrid models keep each slot's
+recurrent state in the backend and serve without the prefix cache, as
+in the reference. MoE LMs serve with per-row dropless routing
 (the sparse variants' serving modes) on the MoE einsum path, as in the
 reference; ``telemetry=True`` collects the model-interior telemetry of
 every call (``serve/telemetry.py``).
@@ -35,16 +37,19 @@ from .telemetry import TelemetryAggregator
 
 # Layer weights the reference reads in f32 whatever the compute dtype, by
 # the sub-dict that holds them: a MoE layer's routing weights (the sparse
-# router, Soft MoE's phi and scale: their logits are f32) and MLA's
-# up-projections (its absorbed products run in f32)
-_F32_WEIGHTS = {"moe": ("router", "phi", "scale"), "attn": ("w_uk", "w_uv")}
+# router, Soft MoE's phi and scale: their logits are f32), MLA's
+# up-projections (its absorbed products run in f32) and the SSM's decay,
+# skip and step bias (its dt, A and D terms are f32)
+_F32_WEIGHTS = {"moe": ("router", "phi", "scale"), "attn": ("w_uk", "w_uv"),
+                "ssm": ("A_log", "D", "dt_bias")}
 
 
 def serving_params(params, cfg):
     """Params as the serving programs use them: every weight cast once to
     the compute dtype, except the embedding tables, which the unembed
     reads in f32, and the weights of ``_F32_WEIGHTS`` (a MoE layer's
-    ``router``, ``phi``, ``scale``; MLA's ``w_uk``, ``w_uv``), kept in
+    ``router``, ``phi``, ``scale``; MLA's ``w_uk``, ``w_uv``; the SSM's
+    ``A_log``, ``D``, ``dt_bias``), kept in
     their stored dtype because the layers compute with them in f32. The
     layers cast every other weight to the activation dtype at each use,
     so this gives the same numbers without the per-step casts. A weight

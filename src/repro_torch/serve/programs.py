@@ -9,7 +9,17 @@ program runs ``lm_apply`` in a serving mode.
 from __future__ import annotations
 
 from ..layers.attention import copy_kv_blocks, reset_block_pos
+from ..layers.ssm import reset_ssm_rows
 from ..models import lm_apply
+
+
+def _slot_view(cache, slot: int):
+    """Batch-1 view of one slot: attention block pools pass whole (rows
+    address them through the table), SSM leaves narrow to the slot's row,
+    so the in-place SSM update writes that row only."""
+    return [{k: ({n: t[slot:slot + 1] for n, t in v.items()}
+                 if k == "ssm" else v) for k, v in layer.items()}
+            for layer in cache]
 
 
 def make_prefill_chunk_paged(cfg, telemetry: bool = False):
@@ -18,11 +28,12 @@ def make_prefill_chunk_paged(cfg, telemetry: bool = False):
     row ``slot`` of the buffer set to the chunk's last-position logits,
     or (logits_buf, telem) with ``telemetry``: ``lm_apply``'s telemetry
     tree of the call. Attention writes scatter into the slot's table
-    blocks."""
+    blocks; SSM layers read and write the slot's row."""
 
     def prefill_chunk(params, cache, buf, slot, table, tokens, positions):
         out = lm_apply(
-            params, cfg, tokens, positions=positions, cache=cache,
+            params, cfg, tokens, positions=positions,
+            cache=_slot_view(cache, slot),
             mode="decode", last_only=True, block_tables=table,
             telemetry=telemetry,
         )
@@ -37,7 +48,8 @@ def make_decode_step_paged(cfg, use_kernel: bool = False,
     """(params, tokens(B,1), pos(B,), tables(B,nb), cache) ->
     logits(B,1,V), or (logits, telem) with ``telemetry``. Rows with
     pos<0 are inactive; their (all-null) table rows contribute only
-    masked-out keys. ``use_kernel`` routes attention through the paged
+    masked-out keys, and their SSM rows stay bitwise as they are.
+    ``use_kernel`` routes attention through the paged
     decode-attention kernel, which reads the pool in place; the gather
     path is its oracle. MoE layers run their einsum path, as in the
     reference (its programs never pass the Soft-MoE ``use_kernel``)."""
@@ -57,7 +69,8 @@ def clear_blocks_program(cache, blocks):
     """Invalidate physical blocks (pos -> -1) in every attention layer.
     Freed blocks are cleared at their next allocation."""
     for layer in cache:
-        reset_block_pos(layer["attn"], blocks)
+        if "attn" in layer:
+            reset_block_pos(layer["attn"], blocks)
     return cache
 
 
@@ -65,5 +78,15 @@ def copy_blocks_program(cache, src, dst):
     """Copy physical blocks src[i] -> dst[i] in every attention layer
     (copy-on-write fork)."""
     for layer in cache:
-        copy_kv_blocks(layer["attn"], src, dst)
+        if "attn" in layer:
+            copy_kv_blocks(layer["attn"], src, dst)
+    return cache
+
+
+def clear_ssm_slot_program(cache, slot: int):
+    """Zero one slot's SSM rows at admission (attention needs no clear
+    here: blocks are invalidated one by one as they are allocated)."""
+    for layer in cache:
+        if "ssm" in layer:
+            reset_ssm_rows(layer["ssm"], slot)
     return cache

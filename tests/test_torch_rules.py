@@ -110,13 +110,13 @@ def test_unported_engine_options_raise():
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, params, batch_size=2, max_len=32, device="cpu",
                         **kw)
-    # mamba2-370m needs SSM blocks, which are not ported: neither lm_init
-    # nor the engine takes it
-    mamba = reduced(get_config("mamba2-370m"))
+    # seamless-m4t-large-v2 needs the encoder-decoder and the audio
+    # frontend, which are not ported: neither lm_init nor the engine takes it
+    seamless = reduced(get_config("seamless-m4t-large-v2"))
     with pytest.raises(NotImplementedError, match="not ported"):
-        lm_init(torch.Generator(), mamba)
+        lm_init(torch.Generator(), seamless)
     with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(mamba, params, batch_size=2, max_len=32, device="cpu")
+        ServeEngine(seamless, params, batch_size=2, max_len=32, device="cpu")
     # MLA is ported on no cache and the paged pool; its contiguous ring
     # cache (a cache without block tables) is not
     from repro_torch.layers.attention import attention_apply, attention_init
@@ -132,8 +132,8 @@ def test_unported_engine_options_raise():
 
 
 def test_unported_moe_options_raise():
-    """An unknown MoE variant and the SSM, hybrid and encoder-decoder LMs
-    (not ported) refuse, and a raw kernel has no backward of its own
+    """An unknown MoE variant and the encoder-decoder LM (not ported)
+    refuse, and a raw kernel has no backward of its own
     (the autograd Functions of kernels/ops.py carry the gradient; the
     routing-health kernel carries none): each refuses, never runs
     half."""
@@ -156,7 +156,7 @@ def test_unported_moe_options_raise():
         moe_init(gen, 16, other)
     with pytest.raises(ValueError, match="unknown MoE variant"):
         moe_apply(params, other, x)
-    for arch in ("mamba2-370m", "hymba-1.5b", "seamless-m4t-large-v2"):
+    for arch in ("seamless-m4t-large-v2",):
         with pytest.raises(NotImplementedError, match="not ported"):
             lm_init(torch.Generator(), reduced(get_config(arch)))
 
