@@ -210,6 +210,39 @@ prints no result line):
    bf16 compute, f32 AdamW moments, remat) trained 5 Trainer steps on
    batch 8 x 2048 of ``SyntheticLM`` (no closing save): a finite loss,
    step p50, tokens/s, peak memory and a profiled step.
+19. contiguous serve: ``ServeEngine(backend="contiguous")`` (the
+   default: one 2048-slot ring row a slot, attention gathers the ring,
+   no kernel) serves full-width qwen2-0.5b over phase 7's trace beside
+   the paged gather engine (``use_kernel=False``): every request
+   finishes, K7 launches 0 times, decode p50, tok/s, peak_cache_bytes
+   (8 x 2048 positions reserved) and peak memory of both; the two
+   engines teacher forced within 5e-2 of max|ref| with the share of
+   equal greedy tokens; a profiled window and ``batch_variance_probe``
+   (batch 4) on the contiguous backend. Then full-width hymba-1.5b in
+   f32 on the contiguous engine (prefill chunks of 32), teacher forced
+   within 1e-4 of max|ref|: phase 17's 8 short prompts against the paged
+   gather engine, and its 1200-token prompt, which wraps the local
+   layers' 1024-slot rings, against the same engine on the host CPU (the
+   reference's ring truncates the window of a chunk's first queries once
+   the ring wraps, the paged pool does not: that distance is recorded,
+   beside the model's gain). Last, one MLA layer of deepseek-v2-lite at
+   full width on a ring in f32, card vs host CPU within 1e-5: a prefill
+   of 256, 4 decode steps, the inactive row's ring bitwise unchanged.
+20. seamless serve: full-width, full-depth seamless-m4t-large-v2 (24
+   encoder and 24 decoder layers, d 1024, vocab 256206; random weights,
+   bf16 but the f32 embedding tables): encoder layer 0 and decoder
+   block 0 in f32 card vs host CPU within 1e-5 (the decoder's
+   self-attention on a ring and its cross-attention on cached K/V); then
+   4 rows of 512 x 1024 frames encoded, a 16-token decoder prompt
+   prefilled whole and 32 greedy decode steps through
+   ``init_encdec_cache``: the decoded logits within 5e-2 of max|ref| of
+   a teacher-forced full forward, encode ms, decode-step p50, tok/s,
+   peak memory and one profiled decode step; K1-K7 launch 0 times.
+21. seamless train: the same model (f32 weights and AdamW moments, bf16
+   compute, the encoder under remat) trained 5 Trainer steps on batch 4
+   x 512 tokens and 512 frames of 1024 of ``SyntheticSeq2Seq`` (no
+   closing save): a finite loss within 1 of ln 256206, step p50,
+   tokens/s, peak memory and a profiled step.
 
 Each phase logs its wall time. The lines before the last carry the
 numbers: the card line as
@@ -1761,7 +1794,8 @@ def teacher_forced(torch, eng, oracle, prompts, max_new):
     same requests. Before each sampling pass the oracle's logits of every
     decoding row are held against the engine's, then replaced by them, so
     both engines sample the same tokens and keep the same schedule: every
-    live row is compared at every tick, late in each request too.
+    live row is compared at every tick, late in each request too. The
+    oracle may live on another device (the host CPU).
 
     Returns per-tick (slots, max abs diff, greedy tokens that agree, max
     abs logit of the gather engine's rows)."""
@@ -1782,11 +1816,12 @@ def teacher_forced(torch, eng, oracle, prompts, max_new):
             raise AssertionError(f"schedules diverged: kernel engine decodes "
                                  f"{snap['slots']}, gather engine {slots}")
         if slots:
-            mine, ref = snap["logits"][slots], oracle._logits[slots]
+            mine = snap["logits"][slots]
+            ref = oracle._logits[slots].to(mine.device)
             agree = int((mine.argmax(-1) == ref.argmax(-1)).sum())
             ticks.append((slots, (mine - ref).abs().max().item(), agree,
                           ref.abs().max().item()))
-        oracle._logits = snap["logits"]
+        oracle._logits = snap["logits"].to(oracle._logits.device)
         return oracle_decode()
 
     eng._do_decode, oracle._do_decode = eng_sample, oracle_sample
@@ -1936,7 +1971,8 @@ def phase_serve(torch, card):
         f"{cfg.attention.num_kv_heads} vocab {cfg.vocab_size}, "
         f"{n_params / 1e6:.1f} M params (init "
         f"{time.perf_counter() - t0:.1f} s)")
-    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda")
+    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda",
+               backend="paged")
     prompts = make_requests(np, cfg.vocab_size)
     max_new = 32
 
@@ -3008,7 +3044,8 @@ def phase_moe_serve(torch, card):
 
     soft_kernels = (routing_fwd, combine_apply, combine_online,
                     routing_health)
-    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda")
+    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda",
+               backend="paged")
     max_new = 16
     probes = {}
     for name in ("granite-moe-1b-a400m", "granite-moe-1b-a400m+soft"):
@@ -3071,14 +3108,14 @@ def phase_moe_serve(torch, card):
         del runs, eng, reqs
         probes[name] = batch_variance_probe(cfg, params, [1, 2, 3, 4],
                                             batch_size=4, max_new_tokens=8,
-                                            max_len=64)
+                                            max_len=64, backend="paged")
         if cfg.moe.variant == "tokens_choice":
             hatch = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, group_size=4, capacity_factor=0.5, bpr=True,
                 batch_coupled=True))
             probes["hatch"] = batch_variance_probe(
                 hatch, params, [1, 2, 3, 4], batch_size=4, max_new_tokens=8,
-                max_len=64)
+                max_len=64, backend="paged")
             batch_variance_bisect(torch, cfg, params, card)
         del params
     gc.collect()
@@ -3087,7 +3124,7 @@ def phase_moe_serve(torch, card):
     qparams = lm_init(torch.Generator(device="cuda").manual_seed(0), qcfg)
     probes["qwen2-0.5b"] = batch_variance_probe(
         qcfg, qparams, [1, 2, 3, 4], batch_size=4, max_new_tokens=8,
-        max_len=64)
+        max_len=64, backend="paged")
     del qparams
     for name, res in probes.items():
         top = sorted(res["per_stat"].items(), key=lambda kv: -kv[1])[:3]
@@ -3131,7 +3168,7 @@ def batch_variance_bisect(torch, cfg, params, card, prompt=(1, 2, 3, 4),
 
     def run(fillers):
         eng = ServeEngine(cfg, params, batch_size=1 + len(fillers),
-                          max_len=64, device="cuda")
+                          max_len=64, device="cuda", backend="paged")
         tgt = Request(prompt=list(prompt), max_new_tokens=max_new)
         rec, first = [], {}
         inner = eng.backend.decode
@@ -3417,7 +3454,8 @@ def phase_mla_serve(torch, card):
         f"{time.perf_counter() - t0:.1f} s)")
     mla_layer_check(torch, cfg, params, card)
 
-    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda")
+    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda",
+               backend="paged")
     max_new = 16
     prompts = moe_serve_requests(np, cfg.vocab_size)
     warm = ServeEngine(cfg, params, telemetry=True, **geo)
@@ -3477,7 +3515,8 @@ def phase_mla_serve(torch, card):
                  f"31-40 of the trace, telemetry off)")
     del prof_eng
     res = batch_variance_probe(cfg, params, [1, 2, 3, 4], batch_size=4,
-                               max_new_tokens=8, max_len=64)
+                               max_new_tokens=8, max_len=64,
+                               backend="paged")
     top = sorted(res["per_stat"].items(), key=lambda kv: -kv[1])[:3]
     log(f"[mla] {card}: batch_variance_probe {cfg.name} (batch 4): "
         f"divergence {res['divergence']:.3e} over {res['steps_compared']} "
@@ -3557,7 +3596,8 @@ def phase_vlm(torch, card):
     del logits, text, embeds
 
     # text-only serving, phase 12's trace; counts from 0
-    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda")
+    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda",
+               backend="paged")
     max_new = 16
     prompts = moe_serve_requests(np, cfg.vocab_size)
     warm = ServeEngine(cfg, params, **geo)
@@ -3995,7 +4035,7 @@ def ssm_layers_teacher_forced(torch, card, cfg, params, prompt, max_new):
     lm_mod.ssm_apply = capture
     try:
         eng = ServeEngine(cfg, params, batch_size=2, max_len=2048,
-                          block_size=16, device="cuda")
+                          block_size=16, device="cuda", backend="paged")
         req = Request(prompt=list(prompt), max_new_tokens=max_new)
         eng.submit(req)
         eng.run()
@@ -4046,7 +4086,8 @@ def phase_ssm_serve(torch, card):
     from repro_torch.kernels.paged_attention import paged_decode_attend
     from repro_torch.serve import Request, ServeEngine, batch_variance_probe
 
-    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda")
+    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda",
+               backend="paged")
     max_new = 16
     launches = 0
     check_serving_weights(torch, ("mamba2-370m", "hymba-1.5b"))
@@ -4150,7 +4191,8 @@ def phase_ssm_serve(torch, card):
         del prof_eng
         t_probe = time.perf_counter()
         res = batch_variance_probe(cfg, params, [1, 2, 3, 4], batch_size=4,
-                                   max_new_tokens=8, max_len=64)
+                                   max_new_tokens=8, max_len=64,
+                                   backend="paged")
         top = sorted(res["per_stat"].items(), key=lambda kv: -kv[1])[:3]
         log(f"[ssm-serve] {card}: batch_variance_probe {name} (batch 4): "
             f"divergence {res['divergence']:.3e} over "
@@ -4249,6 +4291,514 @@ def phase_ssm_train(torch, card):
     return {"p50": p50, "peak": peak}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the contiguous ring backend
+# ---------------------------------------------------------------------------
+
+
+def rel_errs(torch, got, want):
+    """``rel_err`` of each pair: the card's tensors against the CPU's."""
+    return [rel_err(torch, g.cpu(), w) for g, w in zip(got, want)]
+
+
+def mla_ring_check(torch, card):
+    """One MLA layer of deepseek-v2-lite at full width (random f32 weights)
+    on a 512-slot ring, card against the host CPU: a whole-prompt prefill
+    of 256 tokens on 2 rows, then 4 decode steps with row 1 inactive
+    (position -1). Every call's live output and the ring within 1e-5 of
+    max|ref|, ``pos`` equal, and the inactive row's ring bitwise as it was
+    after the prefill on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.layers.attention import init_kv_cache, mla_apply, mla_init
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    p = mla_init(gen, cfg)
+    n, n_dec = 256, 4
+    x = torch.randn(2, n + n_dec, cfg.d_model, generator=gen, device="cuda")
+    outs, rings, frozen = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        xd = x.to(dev)
+        ring = init_kv_cache(cfg, 2, 512, True, torch.float32, device=dev)
+        with torch.no_grad():
+            res = [mla_apply(pd, cfg, xd[:, :n],
+                             positions=torch.arange(n, device=dev),
+                             cache=ring, mode="prefill")[0]]
+            kept = {k: v[1].clone() for k, v in ring.items()}
+            for t in range(n, n + n_dec):
+                pos = torch.tensor([[t], [-1]], dtype=torch.int32,
+                                   device=dev)
+                res.append(mla_apply(pd, cfg, xd[:, t:t + 1], positions=pos,
+                                     cache=ring, mode="decode")[0][:1])
+        frozen[dev] = all(torch.equal(ring[k][1], kept[k]) for k in ring)
+        outs[dev] = [r.cpu() for r in res]
+        rings[dev] = {k: v.cpu() for k, v in ring.items()}
+    errs = rel_errs(torch, outs["cuda"], outs["cpu"])
+    ring_errs = rel_errs(torch, [rings["cuda"][k] for k in ("ckv", "krope")],
+                          [rings["cpu"][k] for k in ("ckv", "krope")])
+    pos_equal = torch.equal(rings["cuda"]["pos"], rings["cpu"]["pos"])
+    log(f"[contig] {card}: one MLA layer of {cfg.name} (d {cfg.d_model}, "
+        f"{cfg.attention.num_heads} heads, rank "
+        f"{cfg.attention.kv_lora_rank}) on a 512-slot ring in f32, card vs "
+        f"host CPU, max|diff| / max|ref| (tol 1e-5): prefill of {n} "
+        f"{errs[0]:.3e}; decode steps "
+        + " ".join(f"{e:.3e}" for e in errs[1:])
+        + f"; ring ckv {ring_errs[0]:.3e} krope {ring_errs[1]:.3e}, pos "
+        f"equal {pos_equal}; inactive row bitwise unchanged on the card "
+        f"{frozen['cuda']}")
+    if max(errs + ring_errs) > 1e-5 or not pos_equal or not frozen["cuda"]:
+        raise AssertionError("the MLA ring layer on the card disagrees with "
+                             "the CPU")
+
+
+def phase_contiguous_serve(torch, card):
+    """The contiguous ring backend (``ServeEngine``'s default) at full width
+    and depth: qwen2-0.5b over phase 7's trace beside the paged gather
+    engine (K7 never launches on the ring: attention gathers it, as in the
+    reference), teacher forced within 5e-2 of max|ref|; hymba-1.5b in f32
+    over phase 17's trace, teacher forced within 1e-4: its 8 short prompts
+    against the paged gather engine, the 1200-token prompt that wraps the
+    local layers' 1024-slot rings against the host CPU (its distance from
+    the paged engine recorded); one MLA layer on the ring, card vs CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_decode_attend
+    from repro_torch.models import lm_init
+    from repro_torch.optim import tree_map
+    from repro_torch.serve import (
+        ContiguousBackend,
+        Request,
+        ServeEngine,
+        batch_variance_probe,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2-0.5b")
+    params = lm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    geo = dict(batch_size=8, max_len=2048, device="cuda")
+    paged = dict(backend="paged", use_kernel=False, block_size=16)
+    prompts = make_requests(np, cfg.vocab_size)
+    max_new = 32
+    warm = ServeEngine(cfg, params, **geo)
+    run_engine(torch, warm, prompts[1:3], 4)
+    del warm
+    runs = {}
+    for name, kw in (("contiguous", {}), ("paged gather", paged)):
+        eng = ServeEngine(cfg, params, **kw, **geo)
+        torch.cuda.reset_peak_memory_stats()
+        paged_decode_attend.launches = 0
+        reqs, wall, decode_s = run_engine(torch, eng, prompts, max_new)
+        runs[name] = (eng, reqs, wall, decode_s, paged_decode_attend.launches,
+                      torch.cuda.max_memory_allocated())
+    eng, reqs = runs["contiguous"][:2]
+    done = all(r.done and r.finish_reason == "length"
+               for run in runs.values() for r in run[1])
+    k7 = runs["contiguous"][4]
+    log(f"[contig] {cfg.name}: backend {type(eng.backend).__name__}, "
+        f"{len(reqs)} requests done={done}, {eng.decode_steps} decode "
+        f"steps, {eng.ticks} ticks; K7 launches {k7} (want 0); ring "
+        f"{eng.backend.max_chunk} slots a layer")
+    for name, (e, rs, wall, decode_s, _, peak) in runs.items():
+        n_tok = sum(len(r.out) for r in rs)
+        log(f"[contig] {card}: {cfg.name} {name} engine (batch 8, max_len "
+            f"2048): {n_tok / wall:.1f} tok/s, decode step p50 "
+            f"{statistics.median(decode_s) * 1e3:.2f} ms, peak_cache_bytes "
+            f"{e.peak_cache_bytes()}, peak device memory "
+            f"{peak / 2**30:.3f} GiB")
+    if not done or k7 != 0 or not isinstance(eng.backend, ContiguousBackend):
+        raise AssertionError("contiguous serving: unfinished requests or a "
+                             "K7 launch")
+    if eng.peak_cache_bytes() != 8 * 2048 * cfg.num_layers * (
+            2 * cfg.attention.num_kv_heads * cfg.attention.head_dim * 2 + 4):
+        raise AssertionError("the contiguous pool is not 8 x 2048 positions")
+    del runs, eng, reqs
+    # teacher forced against the paged gather engine (no prefix cache: the
+    # same chunks, so the same schedule), prefill in chunks of 256
+    ticks = teacher_forced(
+        torch, ServeEngine(cfg, params, prefill_chunk=256, **geo),
+        ServeEngine(cfg, params, prefill_chunk=256, prefix_cache=False,
+                    **paged, **geo), prompts, max_new)
+    rels = [d / r for _, d, _, r in ticks]
+    rows = sum(len(t[0]) for t in ticks)
+    agree = sum(t[2] for t in ticks)
+    log(f"[contig] {card}: {cfg.name} contiguous vs paged gather engine, "
+        f"teacher forced: {rows} row logits; max|diff| / max|ref| at most "
+        f"{max(rels):.3e} (tol 5e-2), median {statistics.median(rels):.3e}; "
+        f"identical greedy tokens {agree}/{rows} = {agree / rows:.4f}")
+    if not all(math.isfinite(r) for r in rels) or max(rels) > 5e-2:
+        raise AssertionError("the contiguous engine's logits disagree with "
+                             "the paged engine's")
+    prof_eng = ServeEngine(cfg, params, **geo)
+    for pr in prompts:
+        prof_eng.submit(Request(prompt=list(pr), max_new_tokens=max_new))
+    for _ in range(20):
+        prof_eng.step()
+    tick_profile(torch, prof_eng, 3, f"contiguous serve {card}: "
+                 f"{cfg.name}, 3 ticks (ticks 21-23 of the trace)")
+    del prof_eng
+    res = batch_variance_probe(cfg, params, [1, 2, 3, 4], batch_size=4,
+                               max_new_tokens=8, max_len=64)
+    top = sorted(res["per_stat"].items(), key=lambda kv: -kv[1])[:3]
+    log(f"[contig] {card}: batch_variance_probe {cfg.name} on the "
+        f"contiguous backend (batch 4): divergence {res['divergence']:.3e} "
+        f"over {res['steps_compared']} steps; largest "
+        + " ".join(f"{k}={v:.3e}" for k, v in top))
+    if res["steps_compared"] == 0:
+        raise AssertionError("the probe compared no decode step")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # hymba-1.5b in f32. Its local layers' rings hold 1024 slots (the
+    # window); the 1200-token prompt wraps them, in chunks of 32. A chunk
+    # written over a full ring overwrites keys that its first queries'
+    # windows still cover, so those queries attend fewer keys than the
+    # window: the reference's ring semantics, which the paged pool (every
+    # position kept) does not share. So the 8 prompts of 16-256 tokens are
+    # held against the paged gather engine, the wrapping one against the
+    # same contiguous engine on the host CPU, and its distance from the
+    # paged engine is recorded.
+    hcfg = dataclasses.replace(get_config("hymba-1.5b"), dtype="float32")
+    hparams = serving_weights(torch, hcfg)
+    short = moe_serve_requests(np, hcfg.vocab_size)
+    long_prompt = [np.random.RandomState(3).randint(
+        1, hcfg.vocab_size, size=1200).tolist()]
+    geo32 = dict(geo, cache_dtype=torch.float32)
+    gather = dict(paged, prefix_cache=False)
+    results = {}
+    paged_decode_attend.launches = 0
+    for label, prompts_h, other, odev in (
+            ("short prompts vs paged gather", short, gather, "cuda"),
+            ("1200-token prompt vs host CPU", long_prompt, {}, "cpu"),
+            ("1200-token prompt vs paged gather", long_prompt, gather,
+             "cuda")):
+        cont = ServeEngine(hcfg, hparams, **geo32)
+        chunk = cont.sched.prefill_chunk  # the default, min(32, ring)
+        oparams = hparams if odev == "cuda" else tree_map(
+            lambda t: t.cpu(), hparams)
+        oracle = ServeEngine(hcfg, oparams, prefill_chunk=chunk, **other,
+                             **dict(geo32, device=odev))
+        t0 = time.perf_counter()
+        ticks = teacher_forced(torch, cont, oracle, prompts_h, 16)
+        rels = [d / r for _, d, _, r in ticks]
+        rows = sum(len(t[0]) for t in ticks)
+        agree = sum(t[2] for t in ticks)
+        results[label] = max(rels)
+        ring_lens = sorted({layer["attn"]["pos"].shape[1]
+                            for layer in cont.backend.pool.cache})
+        log(f"[contig] {card}: {hcfg.name} in f32, contiguous engine (rings "
+            f"{ring_lens} slots, prefill chunks of {chunk}), {label}, "
+            f"teacher forced (prompts {[len(p) for p in prompts_h]}): "
+            f"{rows} row logits; max|diff| / max|ref| at most "
+            f"{max(rels):.3e}, median {statistics.median(rels):.3e}; "
+            f"identical greedy tokens {agree}/{rows} = {agree / rows:.4f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del cont, oracle, oparams
+    k7 = paged_decode_attend.launches
+    del hparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    gain = model_gain(torch, hcfg, short[0])
+    log(f"[contig] {card}: {hcfg.name}: K7 launches {k7} (want 0); the f32 "
+        f"model moves {gain:.1f}x a 1e-6 relative perturbation of its "
+        f"embedding; held within 1e-4: "
+        f"{results['short prompts vs paged gather']:.3e} (short prompts vs "
+        f"paged), {results['1200-token prompt vs host CPU']:.3e} (wrapping "
+        f"prompt, card vs CPU); recorded: "
+        f"{results['1200-token prompt vs paged gather']:.3e} (wrapping "
+        f"prompt vs paged)")
+    held = ("short prompts vs paged gather", "1200-token prompt vs host CPU")
+    if k7 != 0 or chunk != 32 or ring_lens[0] != 1024 or \
+            not all(results[k] <= 1e-4 for k in held) or \
+            not all(math.isfinite(v) for v in results.values()):
+        raise AssertionError("hymba on the contiguous engine disagrees with "
+                             "its oracles")
+    mla_ring_check(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 20-21: seamless-m4t-large-v2, the encoder-decoder
+# ---------------------------------------------------------------------------
+
+
+def encdec_serving_weights(torch, params):
+    """Every weight cast to bf16 once, but the embedding tables, which the
+    unembed reads in f32 (as ``serve.engine.serving_params`` keeps
+    them)."""
+    def cast(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: cast(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v) for v in tree]
+        return tree if key == "table" else tree.to(torch.bfloat16)
+
+    return cast(params)
+
+
+def seamless_layers_check(torch, card, cfg, enc_p, dec_p):
+    """Encoder layer 0 and decoder block 0 in f32 on the card against the
+    host CPU, within 1e-5 of max|ref|: the encoder block (non-causal) over
+    512 frames; the decoder block (self-attention on a 32-slot ring plus
+    cross-attention on K/V cached from a 512-frame encoder output): a
+    whole-prompt prefill of 16 tokens, then 4 decode steps."""
+    import dataclasses
+
+    from repro_torch.layers.attention import init_kv_cache
+    from repro_torch.layers.common import norm_apply
+    from repro_torch.models.encdec import _enc_cfg, cross_attn_apply, cross_kv
+    from repro_torch.models.lm import block_apply
+    from repro_torch.optim import tree_map
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x_enc = torch.randn(1, 512, cfg.d_model, generator=gen, device="cuda")
+    enc_out = torch.randn(1, 512, cfg.d_model, generator=gen, device="cuda")
+    x_dec = torch.randn(1, 20, cfg.d_model, generator=gen, device="cuda")
+    outs, rings = {}, {}
+    for dev in ("cuda", "cpu"):
+        ep = tree_map(lambda t: t.to(dev), enc_p)
+        dp = tree_map(lambda t: t.to(dev), dec_p)
+        cache = {"attn": init_kv_cache(f32, 1, 32, True, torch.float32,
+                                       device=dev)}
+        with torch.no_grad():
+            res = [block_apply(ep, _enc_cfg(f32), x_enc.to(dev),
+                               mode="train")[0]]
+            kv = cross_kv(dp["cross"], f32, enc_out.to(dev))
+            calls = [(0, 16, "prefill")] + [(t, t + 1, "decode")
+                                              for t in range(16, 20)]
+            for a, b, mode in calls:
+                y = block_apply(dp["self"], f32, x_dec[:, a:b].to(dev),
+                                positions=torch.arange(a, b, device=dev),
+                                cache=cache, mode=mode)[0]
+                xn = norm_apply(dp["cross_norm"], f32, y)
+                res.append(y + cross_attn_apply(dp["cross"], f32, xn, kv))
+        outs[dev] = [r.cpu() for r in res]
+        rings[dev] = {k: v.cpu() for k, v in cache["attn"].items()}
+    errs = rel_errs(torch, outs["cuda"], outs["cpu"])
+    ring_errs = rel_errs(torch, [rings["cuda"]["k"], rings["cuda"]["v"]],
+                          [rings["cpu"]["k"], rings["cpu"]["v"]])
+    pos_equal = torch.equal(rings["cuda"]["pos"], rings["cpu"]["pos"])
+    log(f"[seamless] {card}: f32 layers card vs host CPU, max|diff| / "
+        f"max|ref| (tol 1e-5): encoder layer 0 over 512 frames "
+        f"{errs[0]:.3e}; decoder block 0 (ring self-attention + cached "
+        f"cross K/V): prefill of 16 {errs[1]:.3e}, decode steps "
+        + " ".join(f"{e:.3e}" for e in errs[2:])
+        + f"; ring k {ring_errs[0]:.3e} v {ring_errs[1]:.3e}, pos equal "
+        f"{pos_equal}")
+    if max(errs + ring_errs) > 1e-5 or not pos_equal:
+        raise AssertionError("a seamless layer on the card disagrees with "
+                             "the CPU")
+
+
+def phase_seamless_serve(torch, card):
+    """seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+    decoder layers), bf16 serving weights: encode 4 rows of 512 x 1024
+    frames, prefill a 16-token decoder prompt whole, then 32 greedy decode
+    steps through ``init_encdec_cache``; the decoded logits against a
+    teacher-forced full forward within 5e-2 of max|ref|; one encoder and
+    one decoder layer card vs CPU in f32; none of K1-K7 launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_decode_attend
+    from repro_torch.kernels.soft_moe_kernels import (
+        combine_apply,
+        combine_bwd,
+        combine_online,
+        dispatch_bwd,
+        routing_fwd,
+        routing_health,
+    )
+    from repro_torch.models import encdec_apply, encdec_init
+    from repro_torch.models import init_encdec_cache
+    from repro_torch.models.encdec import encode
+    from repro_torch.optim import tree_map
+
+    kernels = (paged_decode_attend, routing_fwd, combine_apply,
+               combine_online, dispatch_bwd, combine_bwd, routing_health)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("seamless-m4t-large-v2")
+    a, fe = cfg.attention, cfg.frontend
+    t0 = time.perf_counter()
+    full = encdec_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    n_params, _ = count_params(full)
+    enc_p = tree_map(lambda t: t.clone(), full["enc_layers"][0])
+    dec_p = tree_map(lambda t: t.clone(), full["dec_blocks"][0])
+    params = encdec_serving_weights(torch, full)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    _, n_bytes = count_params(params)
+    log(f"[seamless] {cfg.name}: {cfg.encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers, d {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, {a.num_heads} heads of {a.head_dim}, {cfg.norm}, "
+        f"{cfg.act}, vocab {cfg.vocab_size}, audio frontend {fe.embed_dim} "
+        f"-> {cfg.d_model}; {n_params} params ({n_params / 1e9:.4f} B), "
+        f"{n_bytes / 2**30:.3f} GiB as served (bf16 but the f32 embedding "
+        f"tables; init and cast {time.perf_counter() - t0:.1f} s)")
+    seamless_layers_check(torch, card, cfg, enc_p, dec_p)
+    del enc_p, dec_p
+
+    b, t_frames, p_len, n_new = 4, 512, 16, 32
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randn(b, t_frames, fe.embed_dim, generator=gen,
+                         device="cuda")
+    prompt = torch.randint(1, cfg.vocab_size, (b, p_len), generator=gen,
+                           device="cuda")
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        enc_s = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc_out, _ = encode(params, cfg, frames)
+            torch.cuda.synchronize()
+            enc_s.append(time.perf_counter() - t0)
+        cache = init_encdec_cache(cfg, b, p_len + n_new + 1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp, (_, cache), _ = encdec_apply(
+            params, cfg, prompt, None,
+            positions=torch.arange(p_len, device="cuda"), cache=cache,
+            enc_out=enc_out, mode="prefill")
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        logits, toks, step_s = [lp[:, -1]], [lp[:, -1].argmax(-1)], []
+        for t in range(p_len, p_len + n_new):
+            t0 = time.perf_counter()
+            lt, (_, cache), _ = encdec_apply(
+                params, cfg, toks[-1][:, None], None,
+                positions=torch.arange(t, t + 1, device="cuda"),
+                cache=cache, enc_out=enc_out, mode="decode")
+            toks.append(lt[:, 0].argmax(-1))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            logits.append(lt[:, 0])
+        peak = torch.cuda.max_memory_allocated()
+        launches = [k.launches for k in kernels]
+        # one more decode step under the profiler
+        t = p_len + n_new
+        last = toks[-1][:, None]
+        prof = types.SimpleNamespace(step=lambda: encdec_apply(
+            params, cfg, last, None,
+            positions=torch.arange(t, t + 1, device="cuda"), cache=cache,
+            enc_out=enc_out, mode="decode"))
+        busy = tick_profile(torch, prof, 1, f"seamless serve {card}: one "
+                            f"decode step (batch {b})")
+        # teacher forced: the full forward over the prompt and the tokens
+        # the decode fed itself
+        seq = torch.cat([prompt, torch.stack(toks[:n_new], 1)], 1)
+        ref = encdec_apply(params, cfg, seq, frames)[0][:, p_len - 1:]
+        dec = torch.stack(logits, 1)
+        rel = ((dec - ref).abs().max() / ref.abs().max()).item()
+        agree = (dec.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    n_tok = b * n_new
+    log(f"[seamless] {card}: encode of {b} x {t_frames} frames p50 "
+        f"{statistics.median(enc_s[1:]) * 1e3:.2f} ms (first "
+        f"{enc_s[0] * 1e3:.2f}); whole-prompt prefill of {p_len} tokens "
+        f"{prefill_s * 1e3:.2f} ms; {n_new} greedy decode steps: p50 "
+        f"{statistics.median(step_s) * 1e3:.2f} ms, {n_tok / sum(step_s):.1f} "
+        f"tok/s; peak device memory {peak / 2**30:.3f} GiB; profiled step "
+        f"busy {busy:.3f}; launches K7, K1-K6 {launches} (want all 0)")
+    log(f"[seamless] {card}: decoded logits vs the teacher-forced full "
+        f"forward ({b} rows x {n_new + 1} positions): max|diff| / max|ref| "
+        f"{rel:.3e} (tol 5e-2); identical greedy tokens {agree:.4f}; "
+        f"logits shape {tuple(dec.shape)}, finite "
+        f"{bool(torch.isfinite(dec).all())}")
+    if any(launches) or not rel <= 5e-2 or \
+            dec.shape != (b, n_new + 1, cfg.vocab_size) or \
+            not torch.isfinite(dec).all():
+        raise AssertionError("seamless serving failed: a kernel launch, or "
+                             "decoded logits off the full forward")
+    del params, cache, enc_out, ref, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_seamless_train(torch, card):
+    """seamless-m4t-large-v2 at full width and depth trained 5 Trainer steps
+    on ``SyntheticSeq2Seq`` (batch 4 x 512 tokens, 512 frames of 1024;
+    f32 weights and AdamW moments, bf16 compute, the encoder under remat
+    as configured; no closing save), then one profiled step."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticSeq2Seq
+    from repro_torch.models import encdec_init, encdec_loss
+    from repro_torch.optim import OptimizerConfig, tree_leaves
+    from repro_torch.train import (
+        Trainer,
+        TrainerConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("seamless-m4t-large-v2")
+    batch, seq, n_frames = 4, 512, 512
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             lambda g: encdec_init(g, cfg))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    data = SyntheticSeq2Seq(vocab_size=cfg.vocab_size, seq_len=seq,
+                            num_frames=n_frames,
+                            frame_dim=cfg.frontend.embed_dim,
+                            batch_size=batch, seed=0, device="cuda")
+    log(f"[seamless-train] {cfg.name}: {n_params} params "
+        f"({n_params / 1e9:.4f} B); train state {state_bytes / 2**30:.3f} "
+        f"GiB (init {time.perf_counter() - t0:.1f} s); remat={cfg.remat}; "
+        f"compute {cfg.dtype}; batch {batch} x {seq} tokens, {n_frames} "
+        f"frames of {cfg.frontend.embed_dim} (SyntheticSeq2Seq)")
+    ckpt_dir = ROOT / "build" / "chip_smoke_seamless_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_steps = 5
+    trainer = Trainer(
+        TrainerConfig(total_steps=n_steps, checkpoint_every=10**9,
+                      checkpoint_dir=str(ckpt_dir), keep_checkpoints=1,
+                      log_every=1),
+        lambda p, b: encdec_loss(p, cfg, b), None, OptimizerConfig(), data)
+    trainer.ckpt.save = lambda *a, **kw: None  # no closing save
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.run(torch.Generator(device="cuda").manual_seed(0),
+                        start_state=state)
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    hist = trainer.metrics_history
+    times = [m["step_time"] for m in hist]
+    p50 = statistics.median(times)
+    ln_v = math.log(cfg.vocab_size)
+    log(f"[seamless-train] {card}: Trainer steps 0-{n_steps - 1} (no "
+        f"closing save): step p50 {p50 * 1e3:.2f} ms (min "
+        f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = "
+        f"{batch * seq / p50:.1f} tokens/s; loss {hist[0]['loss']:.4f} -> "
+        f"{hist[-1]['loss']:.4f} (ln {cfg.vocab_size} = {ln_v:.4f}); peak "
+        f"device memory {peak / 2**30:.3f} GiB")
+    if not all(math.isfinite(m["loss"]) for m in hist) or \
+            abs(hist[0]["loss"] - ln_v) > 1.0:
+        raise AssertionError("the seamless loss is not finite near ln V")
+    step = make_train_step(lambda p, b: encdec_loss(p, cfg, b),
+                           OptimizerConfig())
+    state, _, _ = profile_step(torch, step, state, data.batch(n_steps),
+                               f"seamless train {card} ({cfg.name})")
+    del state, trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _get(tree, path):
     for k in path:
         tree = tree[k]
@@ -4290,6 +4840,9 @@ def main():
         launches["paged_decode_attend"] += timed(
             phase_ssm_serve, torch, card)["paged_decode_attend"]
         timed(phase_ssm_train, torch, card)
+        timed(phase_contiguous_serve, torch, card)
+        timed(phase_seamless_serve, torch, card)
+        timed(phase_seamless_train, torch, card)
         log(f"[phase] all phases: {time.perf_counter() - t0:.1f} s wall")
     except Exception as e:  # noqa: BLE001 — report which phase failed
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr,

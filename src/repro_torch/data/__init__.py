@@ -1,2 +1,2 @@
 """Data of the port, counterpart of ``repro/data``."""
-from .pipeline import SyntheticImages, SyntheticLM  # noqa: F401
+from .pipeline import SyntheticImages, SyntheticLM, SyntheticSeq2Seq  # noqa: F401

@@ -1,5 +1,5 @@
 """Deterministic synthetic streams, counterpart of
-``repro/data/pipeline.py`` (the seq2seq stream is not ported).
+``repro/data/pipeline.py``.
 
   * SyntheticLM: an order-1 Markov token stream (a random table of
     ``branching`` successors per state), so cross-entropy has a clear floor
@@ -7,6 +7,8 @@
   * SyntheticImages: random patch fields whose label is a fixed random
     linear readout of the mean patch: linearly separable, so accuracy
     rises fast.
+  * SyntheticSeq2Seq: frame embeddings and a uniform token stream, the
+    seamless-style stub.
 
 ``batch(step)`` is a pure function of (seed, step, host), so a restarted
 job resumes the stream exactly and the pipeline needs no checkpoint
@@ -98,3 +100,37 @@ class SyntheticImages:
         feats = patches.mean(dim=1)
         labels = (feats @ self._readout.to(feats.dtype)).argmax(dim=-1)
         return {"patches": patches, "labels": labels.to(torch.int32)}
+
+
+@dataclass
+class SyntheticSeq2Seq:
+    """Frame embeddings -> token stream (the seamless-style stub). The
+    frames (N(0, 1)) and the tokens (uniform over the vocabulary) come from
+    a ``torch.Generator`` on ``device`` (the card unless the caller passes
+    ``"cpu"``), seeded with the JAX stream's formula ``(seed * 7_368_787 +
+    step) * 131 + host_id``; its bits cannot match ``jax.random``'s, so
+    the values differ from the JAX package's, but the fields, shapes,
+    dtypes and ranges are the same."""
+
+    vocab_size: int
+    seq_len: int
+    num_frames: int
+    frame_dim: int
+    batch_size: int
+    seed: int = 0
+    host_id: int = 0
+    num_hosts: int = 1
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self._device = resolve_device(self.device)
+
+    def batch(self, step: int):
+        per_host = self.batch_size // self.num_hosts
+        gen = torch.Generator(device=self._device).manual_seed(
+            (self.seed * 7_368_787 + step) * 131 + self.host_id)
+        frames = torch.randn((per_host, self.num_frames, self.frame_dim),
+                             generator=gen, device=self._device)
+        tokens = torch.randint(0, self.vocab_size, (per_host, self.seq_len),
+                               generator=gen, device=self._device)
+        return {"tokens": tokens.to(torch.int32), "embeds": frames}

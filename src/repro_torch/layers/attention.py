@@ -1,10 +1,15 @@
 """Attention variants: GQA (optional QKV bias, sliding window) and MLA
 (DeepSeek-V2 multi-head latent attention with a compressed KV cache),
-over no cache or a paged KV pool, counterpart of
-``repro/layers/attention.py``.
+over no cache, a contiguous ring cache or a paged KV pool, counterpart
+of ``repro/layers/attention.py``.
 
-Two execution modes share one code path:
+Three execution modes share one code path:
   * train/eval: full sequence, no cache.
+  * contiguous serving: a per-row ring (``init_kv_cache``) of ``length``
+    slots, ``min(length, window)`` on sliding-window layers; position p
+    of row b lives in slot ``p % length``. Whole-prompt prefill
+    (``mode="prefill"``, S > 1) writes the ring and attends the input
+    K/V; decode and chunk continuations write, then attend the ring.
   * paged serving: chunked prefill (S > 1) and single-token decode attend
     a block pool through per-row block tables: (num_blocks, block_size,
     G, D) keys and values for GQA, the (num_blocks, block_size, rank)
@@ -15,10 +20,9 @@ Two execution modes share one code path:
 
 Both attend densely (``_attend``) or, once Sq * Sk passes
 ``_CHUNKED_THRESHOLD``, with the flash-style online softmax over key
-blocks (``_attend_chunked``), as the reference does. The pool is updated
-IN PLACE (the JAX package returns a new pytree and donates the old one;
-here the same tensors are written). The contiguous ring cache is not
-ported: a cache without block tables raises.
+blocks (``_attend_chunked``), as the reference does. Rings and pools
+are updated IN PLACE (the JAX package returns a new pytree and donates
+the old one; here the same tensors are written).
 """
 from __future__ import annotations
 
@@ -32,7 +36,6 @@ from .common import lecun_init, resolve_device
 from .rotary import apply_rope
 
 NEG_INF = -2.0**30
-_RING_CACHE = "the contiguous ring cache is not ported; pass block_tables"
 
 # Above this (Sq * Sk) product attention takes the flash-style chunked
 # path (`_attend_chunked`), which never holds the (Sq, Sk) logits: at
@@ -56,6 +59,31 @@ def gqa_init(gen: torch.Generator, cfg):
         p["bk"] = torch.zeros(a.num_kv_heads, a.head_dim, device=dev)
         p["bv"] = torch.zeros(a.num_kv_heads, a.head_dim, device=dev)
     return p
+
+
+def init_kv_cache(cfg, batch: int, length: int, is_global: bool,
+                  dtype=torch.bfloat16, *, device):
+    """Contiguous cache for one layer: a ring of ``length`` slots per row,
+    ``min(length, sliding_window)`` on a sliding-window layer that is not
+    global. ``pos`` is per row, (batch, length), so rows advance through
+    their rings independently (continuous batching admits and retires
+    rows at any decode step); an entry with pos < 0 is invalid and masked
+    out of attention."""
+    a = cfg.attention
+    device = resolve_device(device)
+    if a.sliding_window is not None and not is_global:
+        length = min(length, a.sliding_window)
+    if a.kind == "mla":
+        shapes = {"ckv": (batch, length, a.kv_lora_rank),
+                  "krope": (batch, length, a.qk_rope_head_dim)}
+    else:
+        shape = (batch, length, a.num_kv_heads, a.head_dim)
+        shapes = {"k": shape, "v": shape}
+    ring = {n: torch.zeros(sh, dtype=dtype, device=device)
+            for n, sh in shapes.items()}
+    ring["pos"] = torch.full((batch, length), -1, dtype=torch.int32,
+                             device=device)
+    return ring
 
 
 def init_paged_kv_cache(cfg, num_blocks: int, block_size: int,
@@ -176,6 +204,65 @@ def make_mask(q_positions, k_positions, causal: bool,
     return m
 
 
+def _ring_slots(cache, positions):
+    """Ring addressing of every contiguous-cache writer: (B?,S) absolute
+    positions -> ((B,S) positions, (B,S) slots, (B,S) written?). Position
+    p lands in slot ``p % length``; tokens with position < 0 are not
+    written and address slot 0 (the JAX package addresses the
+    out-of-bounds slot ``length``, which its scatter drops)."""
+    b, length = cache["pos"].shape
+    if positions.ndim == 1:
+        positions = positions[None].expand(b, positions.shape[0])
+    ok = positions >= 0
+    slots = torch.where(ok, positions % length, 0).long()
+    return positions, slots, ok
+
+
+def _ring_update(cache, new_vals: dict, positions):
+    """Write ``new_vals[name]`` (B,S,...) at each row's ring slots in
+    place. Tokens at position < 0 leave both the entry and its ``pos``
+    as they are: inactive rows ride through batched decode steps, and
+    left-pad tokens of a prefill chunk write nothing.
+
+    Where two tokens of a row map to one slot (a whole-prompt prefill
+    longer than the ring), the one at the highest position wins, the
+    state that later decode steps read: each slot's winner is found
+    first (an ``amax`` over position-major keys), and every lane that
+    addresses a slot then stores the slot's final value, so duplicate
+    indices carry one value and the scatter order cannot matter. A slot
+    that no valid token writes keeps its own value, as the paged
+    writer's dropped lanes do; no index depends on the data, so nothing
+    synchronises with the host."""
+    positions, slots, ok = _ring_slots(cache, positions)
+    b, s = slots.shape
+    lane = torch.arange(s, device=slots.device)
+    key = torch.where(ok, positions.long() * s + lane, -1)
+    best = torch.full(cache["pos"].shape, -1, dtype=torch.long,
+                      device=slots.device)
+    best.scatter_reduce_(1, slots, key, "amax")
+    win = best.gather(1, slots)  # (B,S): the final key of each lane's slot
+    hit = win >= 0
+    src = torch.where(hit, win % s, 0)  # the winning lane
+    rows = torch.arange(b, device=slots.device)[:, None]
+    for name, val in new_vals.items():
+        ring = cache[name]
+        keep = hit.reshape(hit.shape + (1,) * (val.ndim - 2))
+        ring[rows, slots] = torch.where(keep, val[rows, src].to(ring.dtype),
+                                        ring[rows, slots])
+    pos = cache["pos"]
+    pos[rows, slots] = torch.where(hit, (win // s).to(pos.dtype),
+                                   pos[rows, slots])
+    return cache
+
+
+def reset_kv_rows(cache, row):
+    """Invalidate row(s) of one layer's ring in place: pos -> -1. The stale
+    K/V values stay; ``make_mask`` admits only entries with pos >= 0, and
+    a later write replaces value and pos together."""
+    cache["pos"][row] = -1
+    return cache
+
+
 def _paged_address(cache, positions, tables):
     """Block-table addressing of every paged-cache writer: (B?,S)
     absolute positions -> ((B,S) positions, (B,S) physical block, (B,S)
@@ -256,11 +343,11 @@ def gqa_apply(params, cfg, x, *, layer_is_global: bool = True,
               block_tables=None, paged_kernel: bool = False):
     """Returns (out, cache). positions: (S,) shared or (B,S) per-row
     absolute token positions; entries < 0 are pad/inactive (no cache
-    write, masked from attention). With ``block_tables`` (B,
-    blocks_per_row) the cache is a paged block pool
-    (`init_paged_kv_cache`) updated in place; ``paged_kernel`` routes
-    single-token paged decode through the paged decode-attention kernel
-    instead of gathering the per-row view."""
+    write, masked from attention). ``cache`` is a per-row ring
+    (`init_kv_cache`), or with ``block_tables`` (B, blocks_per_row) a
+    paged block pool (`init_paged_kv_cache`); either is updated in place.
+    ``paged_kernel`` routes single-token paged decode through the paged
+    decode-attention kernel instead of gathering the per-row view."""
     a = cfg.attention
     b, s, _ = x.shape
     if positions is None:
@@ -302,7 +389,15 @@ def gqa_apply(params, cfg, x, *, layer_is_global: bool = True,
         gathered, kpos = _paged_view(cache, block_tables)
         k_all, v_all = gathered["k"], gathered["v"]
     else:
-        raise NotImplementedError(_RING_CACHE)
+        _ring_update(cache, {"k": k, "v": v}, positions)
+        if s > 1 and mode == "prefill":
+            # whole-prompt prefill attends its own K/V: the ring may have
+            # wrapped (window < prompt), so it serves later steps only
+            k_all, v_all, kpos = k, v, positions
+        else:
+            # decode, and a chunk continuation (S > 1, mode="decode"),
+            # attend the ring, which now holds this call's tokens too
+            k_all, v_all, kpos = cache["k"], cache["v"], cache["pos"]
 
     out = _attend_any(q, k_all, v_all, positions, kpos, cfg.causal, window,
                       is_global=is_global)
@@ -373,7 +468,12 @@ def mla_apply(params, cfg, x, *, positions=None, cache=None,
         gathered, kpos = _paged_view(cache, block_tables)
         ckv_all, krope_all = gathered["ckv"], gathered["krope"]
     else:
-        raise NotImplementedError(_RING_CACHE)
+        _ring_update(cache, {"ckv": ckv, "krope": krope}, positions)
+        if s > 1 and mode == "prefill":  # as in gqa_apply
+            ckv_all, krope_all, kpos = ckv, krope, positions
+        else:
+            ckv_all, krope_all = cache["ckv"], cache["krope"]
+            kpos = cache["pos"]
 
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(),
                          params["w_uk"].float()).to(dt)

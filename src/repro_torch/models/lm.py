@@ -12,13 +12,16 @@ checkpointing (``torch.utils.checkpoint``), and the telemetry of a
 segment is stacked on a leading ``(count,)`` axis and keyed by the
 segment's first layer; otherwise (serving, or ``scan_layers`` off, as
 ``reduced`` sets it) each layer's telemetry is keyed by its index, as
-the JAX unrolled path keys it. The vision frontend is the reference's
-stub: precomputed patch embeddings projected by ``params["frontend"]``
-and prepended to the tokens. A block runs attention, a Mamba-2 layer
-(``layers/ssm.py``; mamba2 has no attention and no MLP), or both in
-parallel with their outputs mean-fused (Hymba). The audio frontend and
-encoder-decoder models wait for a later slice (``check_supported``
-raises for them). MoE layers run any
+the JAX unrolled path keys it. The vision and audio frontends are the
+reference's stub: precomputed patch or frame embeddings projected by
+``params["frontend"]`` and prepended to the tokens (here an
+encoder-decoder config runs its decoder stack, as the reference's
+``lm_init``/``lm_apply`` do; ``models/encdec.py`` runs the whole model).
+A block runs attention, a Mamba-2 layer (``layers/ssm.py``; mamba2 has
+no attention and no MLP), or both in parallel with their outputs
+mean-fused (Hymba). A cache is the per-layer list of ``init_cache``
+(contiguous rings and SSM rows) or of the paged backend's pools, updated
+in place. MoE layers run any
 variant of ``core.moe_apply``: Soft MoE, the sparse baselines (whose
 routing scope follows ``mode``: coupled groups in train mode, per-row
 dropless routing when serving) and the ablations.
@@ -32,11 +35,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import moe_apply, moe_init, resolve_moe_cfg
-from ..layers.attention import attention_apply, attention_init
+from ..layers.attention import attention_apply, attention_init, init_kv_cache
 from ..layers.common import dtype_of, lecun_init, norm_apply, norm_init
 from ..layers.embedding import embed, embedding_init, unembed
 from ..layers.mlp import mlp_apply, mlp_init
-from ..layers.ssm import ssm_apply, ssm_init
+from ..layers.ssm import init_ssm_cache, ssm_apply, ssm_init
 
 
 def segment_plan(cfg, n_layers: Optional[int] = None
@@ -56,14 +59,13 @@ def segment_plan(cfg, n_layers: Optional[int] = None
 
 
 def check_supported(cfg):
-    """Raise for the parts of the config family the port lacks so far."""
+    """Raise for the parts of the config family the port lacks: an
+    attention kind or a frontend that no config of the repo has."""
     missing = []
     if cfg.has_attention() and cfg.attention.kind not in ("gqa", "mla"):
         missing.append(f"{cfg.attention.kind!r} attention")
-    if cfg.frontend.kind not in ("none", "vision"):
+    if cfg.frontend.kind not in ("none", "vision", "audio"):
         missing.append(f"the {cfg.frontend.kind} frontend")
-    if cfg.encoder_layers:
-        missing.append("encoder-decoder")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {', '.join(missing)}")
@@ -237,9 +239,10 @@ def lm_apply(params, cfg, tokens, *, embeds=None, positions=None,
     embeddings, so positions and logits run over N + S; positions: (S,)
     shared or (B, S) per-row (entries < 0 mark pad/inactive tokens that
     neither write nor read any cache). ``cache`` is the per-layer list of
-    paged pools (updated in place) addressed through ``block_tables`` (B,
-    blocks_per_row); ``paged_kernel`` streams paged single-token decode
-    through the kernel. ``use_kernel`` routes the Soft-MoE layers through
+    ``init_cache`` (rings and SSM rows), or of paged pools addressed
+    through ``block_tables`` (B, blocks_per_row); either is updated in
+    place. ``paged_kernel`` streams paged single-token decode through the
+    kernel. ``use_kernel`` routes the Soft-MoE layers through
     the kernels.
     ``last_only`` unembeds only the final position. Returns (logits (B,
     S|1, V) f32, cache, aux), aux the sum of the blocks' auxiliary losses,
@@ -291,6 +294,26 @@ def lm_apply(params, cfg, tokens, *, embeds=None, positions=None,
         return logits, cache, aux
     return logits, cache, aux, {"layers": layer_telem,
                                 "logits": _logit_probes(logits)}
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
+               device):
+    """The contiguous per-layer cache list on ``device``: ``"attn"`` a ring
+    of ``max_len`` slots (``min(max_len, window)`` on local layers),
+    ``"ssm"`` the recurrent rows; every leaf has a leading ``batch`` axis
+    and the rings a per-row ``pos``, so rows are admitted and retired
+    independently (``serve/cache_pool.py``)."""
+    caches = []
+    for i in range(cfg.num_layers):
+        c = {}
+        if cfg.has_attention():
+            c["attn"] = init_kv_cache(cfg, batch, max_len,
+                                      cfg.attention.is_global_layer(i),
+                                      dtype, device=device)
+        if cfg.has_ssm():
+            c["ssm"] = init_ssm_cache(cfg, batch, dtype, device=device)
+        caches.append(c)
+    return caches
 
 
 def lm_loss(params, cfg, batch, use_kernel: bool = False,

@@ -1,24 +1,29 @@
-"""Continuous-batching serving engine over the paged cache backend,
-counterpart of ``ServeEngine`` in ``repro/serve/engine.py``.
+"""Continuous-batching serving engine over the contiguous (the default,
+as in the reference) or the paged cache backend, counterpart of
+``ServeEngine`` in ``repro/serve/engine.py``.
 
 Requests are admitted the moment the backend has a slot and blocks for
 them, prompts prefill in fixed-size chunks interleaved with decode
 steps, every decode tick advances ALL live rows in one batched model
 call, and a row retires (its memory released, the next request
-admitted) the tick it samples EOS or exhausts its budget. Decode
-attention runs the paged decode-attention kernel on CUDA
+admitted) the tick it samples EOS or exhausts its budget. On the
+contiguous backend each slot owns a ``max_len`` ring row and decode
+attention gathers it, as in the reference (no kernel runs). On the paged
+backend decode attention runs the paged decode-attention kernel on CUDA
 (``use_kernel=True``, the default) or the gather path; MLA models always
 gather, as in the reference. SSM and hybrid models keep each slot's
 recurrent state in the backend and serve without the prefix cache, as
-in the reference. MoE LMs serve with per-row dropless routing
-(the sparse variants' serving modes) on the MoE einsum path, as in the
-reference; ``telemetry=True`` collects the model-interior telemetry of
-every call (``serve/telemetry.py``).
+in the reference. An encoder-decoder config serves its decoder stack
+with the frontend projection prepended, as the reference's engine does.
+MoE LMs serve with per-row dropless routing (the sparse variants'
+serving modes) on the MoE einsum path, as in the reference;
+``telemetry=True`` collects the model-interior telemetry of every call
+(``serve/telemetry.py``).
 
-Not ported yet: the contiguous backend, speculative decoding, span
-tracing and the flight recorder (asking for them raises
-``NotImplementedError``), and publishing generated tokens into the
-radix tree (the JAX engine's ``cache_generated``).
+Not ported yet: speculative decoding, span tracing and the flight
+recorder (asking for them raises ``NotImplementedError``), and
+publishing generated tokens into the radix tree (the JAX engine's
+``cache_generated``).
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 from ..layers.common import dtype_of, resolve_device
 from ..models.lm import check_supported
 from .block_manager import PagedBackend
+from .cache_pool import ContiguousBackend
 from .sampling import GREEDY, SamplingParams, sample_tokens_checked
 from .scheduler import Request, Scheduler
 from .telemetry import TelemetryAggregator
@@ -68,16 +74,18 @@ def serving_params(params, cfg):
 
 
 class ServeEngine:
-    """Continuous-batching serving engine (paged backend).
+    """Continuous-batching serving engine.
 
     batch_size is the number of decode rows (= max concurrent requests);
     max_len caps prompt+generation per request. Per-request sampling
     comes from Request.sampling; ``default_sampling`` fills in for
-    requests that keep the dataclass default. ``block_size`` tokens per
-    KV block, ``num_blocks`` total pool blocks (default: one max_len row
-    per slot), ``prefix_cache`` shares common prompt prefixes through the
-    radix tree, ``use_kernel`` picks the paged decode-attention kernel
-    (default) or the gather path. ``device`` is where the model and the
+    requests that keep the dataclass default. ``backend`` is
+    ``"contiguous"`` (one max_len ring row per slot) or ``"paged"``; the
+    paged backend takes ``block_size`` tokens per KV block,
+    ``num_blocks`` total pool blocks (default: one max_len row per slot),
+    ``prefix_cache`` (share common prompt prefixes through the radix
+    tree) and ``use_kernel`` (the paged decode-attention kernel, the
+    default, or the gather path). ``device`` is where the model and the
     pools live (``"cuda"`` unless the caller asks for ``"cpu"``).
     ``telemetry=True`` drains each call's telemetry tree into
     ``self.telemetry`` (a ``TelemetryAggregator``: ``tick`` holds the
@@ -93,16 +101,13 @@ class ServeEngine:
                  eos_id: Optional[int] = None, pad_id: int = 0,
                  default_sampling: SamplingParams = GREEDY,
                  prefill_chunk: Optional[int] = None,
-                 cache_dtype=torch.bfloat16, backend: str = "paged",
+                 cache_dtype=torch.bfloat16, backend: str = "contiguous",
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefix_cache: bool = True, use_kernel: bool = True,
                  spec=None,
                  max_queue: Optional[int] = None, trace: bool = False,
                  flight_recorder: int = 0, telemetry: bool = False,
                  device="cuda"):
-        if backend != "paged":
-            raise NotImplementedError(
-                f"backend {backend!r} not ported; use backend='paged'")
         for name, on in (("spec", spec is not None), ("trace", trace),
                          ("flight_recorder", flight_recorder)):
             if on:
@@ -115,12 +120,19 @@ class ServeEngine:
         self.max_len = max_len
         self.pad_id = pad_id
         self.default_sampling = default_sampling
-        self.backend = PagedBackend(
-            cfg, batch_size, max_len, dtype_of(cache_dtype),
-            block_size=block_size, num_blocks=num_blocks,
-            prefix_cache=prefix_cache, use_kernel=use_kernel,
-            telemetry=telemetry, device=self.device,
-        )
+        if backend == "contiguous":
+            self.backend = ContiguousBackend(
+                cfg, batch_size, max_len, dtype_of(cache_dtype),
+                telemetry=telemetry, device=self.device)
+        elif backend == "paged":
+            self.backend = PagedBackend(
+                cfg, batch_size, max_len, dtype_of(cache_dtype),
+                block_size=block_size, num_blocks=num_blocks,
+                prefix_cache=prefix_cache, use_kernel=use_kernel,
+                telemetry=telemetry, device=self.device,
+            )
+        else:
+            raise ValueError(f"unknown backend {backend!r}")
         # drains the backend's per-call (phase, tree) stash each phase
         self.telemetry = TelemetryAggregator() if telemetry else None
         chunk = prefill_chunk or min(32, self.backend.max_chunk)

@@ -1,16 +1,79 @@
-"""The device programs the paged serving backend runs, counterpart of the
-paged part of ``repro/serve/programs.py``.
+"""The device programs the serving backends run, counterpart of
+``repro/serve/programs.py``: the contiguous (slot-row) programs over
+``init_cache``'s rings and the paged programs over the block pools.
 
 The JAX package jits each program once with one fixed signature and
 donates the cache. Here they are plain eager functions that update the
-per-layer pools in place; CUDA graphs of them are a later change. Every
-program runs ``lm_apply`` in a serving mode.
+per-layer caches in place; CUDA graphs of them are a later change. Every
+program runs ``lm_apply`` in a serving mode. The speculative-decoding
+programs (verify, rollback) are not ported.
 """
 from __future__ import annotations
+
+import torch
 
 from ..layers.attention import copy_kv_blocks, reset_block_pos
 from ..layers.ssm import reset_ssm_rows
 from ..models import lm_apply
+from .cache_pool import pool_row
+
+
+# ---------------------------------------------------------------------------
+# contiguous (slot-row) programs
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_step(cfg, max_len: int):
+    """Whole-prompt prefill: (params, tokens(B,S), cache) -> logits(B,1,V)
+    at the last position, positions ``arange(S)`` shared by every row.
+    ``max_len`` is taken for signature parity with the reference."""
+    del max_len
+
+    def prefill(params, tokens, cache):
+        s = tokens.shape[1]
+        return lm_apply(params, cfg, tokens,
+                        positions=torch.arange(s, device=tokens.device),
+                        cache=cache, mode="prefill", last_only=True)[0]
+
+    return prefill
+
+
+def make_decode_step(cfg, telemetry: bool = False):
+    """(params, tokens(B,1), pos(B,), cache) -> logits(B,1,V), or (logits,
+    telem) with ``telemetry``. Per-row positions; rows with pos < 0 are
+    inactive and leave their ring and SSM rows as they are."""
+
+    def decode(params, tokens, pos, cache):
+        out = lm_apply(params, cfg, tokens, positions=pos[:, None],
+                       cache=cache, mode="decode", telemetry=telemetry)
+        return (out[0], out[3]) if telemetry else out[0]
+
+    return decode
+
+
+def make_prefill_chunk_step(cfg, telemetry: bool = False):
+    """Chunked prefill into one pool slot: (params, cache, logits_buf,
+    slot, tokens(1,C), positions(1,C)) -> logits_buf with row ``slot``
+    set to the chunk's last-position logits, or (logits_buf, telem).
+    ``mode="decode"`` with S > 1 makes attention read earlier chunks back
+    from the ring (and the SSM continue from its state), so chunks
+    compose exactly; left-pad tokens carry position -1 and write
+    nothing. The model runs on the slot's row view, so its writes land
+    in the pool."""
+
+    def prefill_chunk(params, cache, buf, slot, tokens, positions):
+        out = lm_apply(params, cfg, tokens, positions=positions,
+                       cache=pool_row(cache, slot), mode="decode",
+                       last_only=True, telemetry=telemetry)
+        buf[slot] = out[0][0, -1].to(buf.dtype)
+        return (buf, out[3]) if telemetry else buf
+
+    return prefill_chunk
+
+
+# ---------------------------------------------------------------------------
+# paged (block-pool) programs
+# ---------------------------------------------------------------------------
 
 
 def _slot_view(cache, slot: int):

@@ -179,7 +179,7 @@ def _collect_target_steps(engine, target, fillers,
 
 def batch_variance_probe(cfg, params, prompt, batch_size: int = 4,
                          max_new_tokens: int = 8, max_len: int = 64,
-                         backend: str = "paged", **engine_kw) -> dict:
+                         backend: str = "contiguous", **engine_kw) -> dict:
     """How far the serving forward pass depends on the batch's makeup.
 
     Serves ``prompt`` twice with telemetry on, alone (batch_size=1) and
@@ -197,9 +197,8 @@ def batch_variance_probe(cfg, params, prompt, batch_size: int = 4,
     ``MoEConfig.batch_coupled=True`` hatch with ``group_size =
     batch_size``, a ``capacity_factor`` low enough to bind and
     ``bpr=True``, which proves the instrument alive. ``backend``
-    defaults to ``"paged"``, the port's one backend (the JAX default is
-    the contiguous backend, not ported yet). ``engine_kw`` goes to
-    ``ServeEngine`` (``device="cpu"`` off the card)."""
+    defaults to ``"contiguous"``, as in the reference. ``engine_kw``
+    goes to ``ServeEngine`` (``device="cpu"`` off the card)."""
     from .engine import ServeEngine
     from .scheduler import Request
 

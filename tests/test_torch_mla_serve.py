@@ -71,7 +71,8 @@ def _prompts():
 
 
 def _serve(cfg, params, prompts, max_new=6, **kw):
-    geo = dict(batch_size=2, max_len=64, block_size=8, device="cpu")
+    geo = dict(batch_size=2, max_len=64, block_size=8, device="cpu",
+               backend="paged")
     geo.update(kw)
     eng = ServeEngine(cfg, params, **geo)
     reqs = [Request(prompt=list(p), max_new_tokens=max_new) for p in prompts]
@@ -98,7 +99,7 @@ def test_engine_tokens_match_jax_engine(jx, arch):
     jeng = jx.ServeEngine(jcfg, jparams, backend="paged", use_kernel=False,
                           cache_dtype=jx.jnp.float32, **geo)
     teng = ServeEngine(cfg, params, cache_dtype=torch.float32, device="cpu",
-                       **geo)
+                       backend="paged", **geo)
     outs = []
     for eng, req in ((jeng, jx.Request), (teng, Request)):
         reqs = [req(prompt=p, max_new_tokens=10) for p in _prompts()]
@@ -163,7 +164,8 @@ def test_prefix_cache_parity_on_the_latent_pool():
 def test_batch_variance_probe_null_on_deepseek():
     cfg, params = _setup(ARCHS[0])
     res = batch_variance_probe(cfg, params, [1, 2, 3, 4], batch_size=4,
-                               max_new_tokens=8, max_len=32, device="cpu")
+                               max_new_tokens=8, max_len=32, device="cpu",
+                               backend="paged")
     assert res["steps_compared"] > 0
     assert any(":router_entropy" in k for k in res["per_stat"])
     assert res["divergence"] < 1e-5
@@ -188,7 +190,8 @@ def test_engine_serves_on_the_card(card, arch):
     outs = []
     for telemetry in (False, True):
         eng = ServeEngine(cfg, params, batch_size=4, max_len=64,
-                          block_size=8, telemetry=telemetry)
+                          block_size=8, telemetry=telemetry,
+                          backend="paged")
         reqs = [Request(prompt=list(p), max_new_tokens=8)
                 for p in ([1, 2, 3, 4, 5], [9, 8, 7], [4] * 6, [2, 4, 6])]
         paged_decode_attend.launches = 0

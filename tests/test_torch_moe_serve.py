@@ -86,7 +86,8 @@ def _setup(jx, name, **moe_over):
 
 def _serve(cfg, params, prompts, sampling=None, max_new=8, **kw):
     """Serve ``prompts`` on the CPU; returns (engine, token lists)."""
-    geo = dict(batch_size=max(1, len(prompts)), max_len=64, block_size=8)
+    geo = dict(batch_size=max(1, len(prompts)), max_len=64, block_size=8,
+               backend="paged")
     geo.update(kw)
     eng = ServeEngine(cfg, params, device="cpu", **geo)
     reqs = [Request(prompt=list(p), max_new_tokens=max_new,
@@ -135,7 +136,7 @@ def test_engine_tokens_and_telemetry_match_jax_engine(jx, arch):
     jeng = jx.ServeEngine(jcfg, jparams, backend="paged", use_kernel=False,
                           cache_dtype=jx.jnp.float32, **geo)
     teng = ServeEngine(cfg, params, cache_dtype=torch.float32, device="cpu",
-                       **geo)
+                       backend="paged", **geo)
     outs = []
     for eng, req in ((jeng, jx.Request), (teng, Request)):
         reqs = [req(prompt=p, max_new_tokens=10) for p in _prompts()]
@@ -256,13 +257,14 @@ def test_batch_variance_probe_null_on_group_routed_sparse_and_dense(jx):
     cfg, params = _setup(jx, "granite-moe-1b-a400m", **WORST)
     grouped = batch_variance_probe(cfg, params, [1, 2, 3, 4], batch_size=4,
                                    max_new_tokens=8, max_len=32,
-                                   device="cpu")
+                                   device="cpu", backend="paged")
     assert grouped["steps_compared"] > 0
     assert any(":router_entropy" in k for k in grouped["per_stat"])
     assert grouped["divergence"] < 1e-5
     dcfg, dparams = _setup(jx, "llama3-8b")
     dense = batch_variance_probe(dcfg, dparams, [1, 2, 3, 4], batch_size=4,
-                                 max_new_tokens=8, max_len=32, device="cpu")
+                                 max_new_tokens=8, max_len=32, device="cpu",
+                                 backend="paged")
     assert dense["steps_compared"] > 0
     assert dense["divergence"] < 1e-5
 
@@ -270,7 +272,8 @@ def test_batch_variance_probe_null_on_group_routed_sparse_and_dense(jx):
 def test_batch_variance_probe_null_on_soft_moe(jx):
     cfg, params = _setup(jx, "granite-moe-1b-a400m+soft")
     res = batch_variance_probe(cfg, params, [1, 2, 3, 4], batch_size=3,
-                               max_new_tokens=6, max_len=32, device="cpu")
+                               max_new_tokens=6, max_len=32, device="cpu",
+                               backend="paged")
     assert res["steps_compared"] > 0
     assert any(":dispatch_entropy" in k for k in res["per_stat"])
     assert res["divergence"] < 1e-5
@@ -279,7 +282,8 @@ def test_batch_variance_probe_null_on_soft_moe(jx):
 def test_batch_variance_probe_instrument_alive_via_escape_hatch(jx):
     cfg, params = _setup(jx, "granite-moe-1b-a400m", **HATCH)
     res = batch_variance_probe(cfg, params, [1, 2, 3, 4], batch_size=4,
-                               max_new_tokens=8, max_len=32, device="cpu")
+                               max_new_tokens=8, max_len=32, device="cpu",
+                               backend="paged")
     assert res["steps_compared"] > 0
     assert res["divergence"] > 0
 
@@ -324,7 +328,8 @@ def test_engine_serves_moe_on_the_card_with_telemetry_and_k7(card, arch):
     outs = []
     for telemetry in (False, True):
         eng = ServeEngine(cfg, params, batch_size=4, max_len=64,
-                          block_size=8, telemetry=telemetry)
+                          block_size=8, telemetry=telemetry,
+                          backend="paged")
         reqs = [Request(prompt=list(p), max_new_tokens=8)
                 for p in [PROMPT] + FILLERS]
         paged_decode_attend.launches = 0

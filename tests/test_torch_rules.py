@@ -90,53 +90,94 @@ def test_cuda_request_without_a_gpu_raises():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SyntheticLM(vocab_size=16, seq_len=4, batch_size=2)
-    # the pool initialisers take no default device, and refuse CUDA
-    for init in (init_paged_kv_cache, init_paged_cache):
+    # the pool and cache initialisers take no default device, and refuse
+    # CUDA
+    from repro_torch.layers.attention import init_kv_cache
+    from repro_torch.models import init_cache, init_encdec_cache
+    from repro_torch.serve import CachePool
+
+    for init in (init_paged_kv_cache, init_paged_cache, init_cache,
+                 init_encdec_cache, CachePool,
+                 lambda *a, **kw: init_kv_cache(*a, True, **kw)):
         with pytest.raises(TypeError, match="device"):
             init(cfg, 4, 4)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             init(cfg, 4, 4, device="cuda")
+    # the contiguous backend's engine and the seq2seq stream default to
+    # the card too
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, params, batch_size=2, max_len=32,
+                    backend="contiguous")
+    from repro_torch.data import SyntheticSeq2Seq
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SyntheticSeq2Seq(vocab_size=16, seq_len=4, num_frames=2,
+                         frame_dim=3, batch_size=2)
 
 
 def test_unported_engine_options_raise():
+    """Speculative decoding, span tracing and the flight recorder are not
+    ported: each raises on both backends. What this slice ported builds
+    what the reference builds: ``lm_init`` and ``ServeEngine`` take
+    seamless-m4t-large-v2 (its decoder stack with the audio frontend
+    prepended), and MLA runs on the contiguous ring cache."""
     from repro_torch.configs import get_config, reduced
-    from repro_torch.models import lm_init
-    from repro_torch.serve import ServeEngine
+    from repro_torch.models import lm_apply, lm_init
+    from repro_torch.serve import ContiguousBackend, ServeEngine
 
     cfg = reduced(get_config("qwen2-0.5b"))
     params = lm_init(torch.Generator().manual_seed(0), cfg)
-    for kw in ({"spec": object()}, {"trace": True},
-               {"flight_recorder": 4}, {"backend": "contiguous"}):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(cfg, params, batch_size=2, max_len=32, device="cpu",
-                        **kw)
-    # seamless-m4t-large-v2 needs the encoder-decoder and the audio
-    # frontend, which are not ported: neither lm_init nor the engine takes it
+    for backend in ("contiguous", "paged"):
+        for kw in ({"spec": object()}, {"trace": True},
+                   {"flight_recorder": 4}):
+            with pytest.raises(NotImplementedError):
+                ServeEngine(cfg, params, batch_size=2, max_len=32,
+                            device="cpu", backend=backend, **kw)
+    # seamless-m4t-large-v2: lm_init draws the embedding, the audio
+    # frontend's projection and the decoder stack, and the (default,
+    # contiguous) engine serves it
     seamless = reduced(get_config("seamless-m4t-large-v2"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm_init(torch.Generator(), seamless)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(seamless, params, batch_size=2, max_len=32, device="cpu")
-    # MLA is ported on no cache and the paged pool; its contiguous ring
-    # cache (a cache without block tables) is not
-    from repro_torch.layers.attention import attention_apply, attention_init
+    sp = lm_init(torch.Generator().manual_seed(0), seamless)
+    fe = seamless.frontend
+    assert sp["frontend"]["w"].shape == (fe.embed_dim, seamless.d_model)
+    assert len(sp["layers"]) == seamless.num_layers
+    assert "enc_layers" not in sp
+    logits = lm_apply(sp, seamless, torch.tensor([[1, 2, 3]]),
+                      embeds=torch.zeros(1, fe.num_embeds, fe.embed_dim))[0]
+    assert logits.shape == (1, fe.num_embeds + 3, seamless.vocab_size)
+    eng = ServeEngine(seamless, sp, batch_size=2, max_len=32, device="cpu")
+    assert isinstance(eng.backend, ContiguousBackend)
+    from repro_torch.serve import Request
+
+    req = Request(prompt=[1, 2, 3], max_new_tokens=3)
+    eng.submit(req)
+    eng.run()
+    assert req.done and len(req.out) == 3
+    # MLA on the contiguous ring cache (a cache without block tables)
+    from repro_torch.layers.attention import (
+        attention_apply,
+        attention_init,
+        init_kv_cache,
+    )
 
     deepseek = reduced(get_config("deepseek-v2-lite-16b"))
-    attn = attention_init(torch.Generator(), deepseek)
-    x = torch.zeros(1, 2, deepseek.d_model)
-    ring = {"ckv": torch.zeros(1, 8, deepseek.attention.kv_lora_rank),
-            "krope": torch.zeros(1, 8, deepseek.attention.qk_rope_head_dim),
-            "pos": torch.full((1, 8), -1, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        attention_apply(attn, deepseek, x, cache=ring, mode="decode")
+    attn = attention_init(torch.Generator().manual_seed(0), deepseek)
+    x = torch.randn(1, 2, deepseek.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    ring = init_kv_cache(deepseek, 1, 8, True, torch.float32, device="cpu")
+    out, got = attention_apply(attn, deepseek, x, cache=ring, mode="decode")
+    assert got is ring and out.shape == x.shape
+    assert ring["pos"][0].tolist() == [0, 1, -1, -1, -1, -1, -1, -1]
+    want = attention_apply(attn, deepseek, x)[0]
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
 
 
 def test_unported_moe_options_raise():
-    """An unknown MoE variant and the encoder-decoder LM (not ported)
-    refuse, and a raw kernel has no backward of its own
-    (the autograd Functions of kernels/ops.py carry the gradient; the
-    routing-health kernel carries none): each refuses, never runs
-    half."""
+    """An unknown MoE variant refuses, the encoder-decoder config builds
+    its decoder stack through ``lm_init`` as in the reference, and a raw
+    kernel has no backward of its own (the autograd Functions of
+    kernels/ops.py carry the gradient; the routing-health kernel carries
+    none): each refuses, never runs half."""
     from repro_torch.configs import MoEConfig, get_config, reduced
     from repro_torch.core import moe_apply, moe_init
     from repro_torch.kernels.soft_moe_kernels import (
@@ -157,8 +198,11 @@ def test_unported_moe_options_raise():
     with pytest.raises(ValueError, match="unknown MoE variant"):
         moe_apply(params, other, x)
     for arch in ("seamless-m4t-large-v2",):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            lm_init(torch.Generator(), reduced(get_config(arch)))
+        scfg = reduced(get_config(arch))
+        sp = lm_init(torch.Generator(), scfg)
+        assert set(sp) == {"embed", "frontend", "layers", "final_norm",
+                           "unembed"}
+        assert len(sp["layers"]) == scfg.num_layers
 
     # A kernel wrapper handed non-CPU tensors that need a gradient refuses
     # before anything else (differentiate through kernels/ops.py instead);

@@ -180,7 +180,7 @@ def test_engine_greedy_tokens_match_jax_engine():
     jeng = JaxServeEngine(jcfg, jparams, backend="paged", use_kernel=False,
                           cache_dtype=jnp.float32, **GEO)
     teng = ServeEngine(tcfg, tparams, cache_dtype=torch.float32,
-                       device="cpu", **GEO)
+                       device="cpu", backend="paged", **GEO)
     outs = []
     for eng, req in ((jeng, JaxRequest), (teng, Request)):
         reqs = [req(prompt=p, max_new_tokens=10) for p in prompts]
@@ -201,7 +201,8 @@ def test_kernel_route_matches_gather_route_in_the_port():
     for use_kernel in (True, False):
         eng = ServeEngine(tcfg, tparams, use_kernel=use_kernel,
                           cache_dtype=torch.float32, device="cpu",
-                          batch_size=3, max_len=64, block_size=8)
+                          batch_size=3, max_len=64, block_size=8,
+                          backend="paged")
         reqs = [Request(prompt=p, max_new_tokens=6) for p in _prompts()]
         for r in reqs:
             eng.submit(r)
@@ -235,7 +236,8 @@ def test_cancel_deadline_and_poisoned_row_release_everything():
     other requests still finish."""
     _, tcfg, _, tparams = _qwen_pair()
     eng = ServeEngine(tcfg, tparams, cache_dtype=torch.float32,
-                      device="cpu", batch_size=3, max_len=64, block_size=8)
+                      device="cpu", batch_size=3, max_len=64, block_size=8,
+                      backend="paged")
     p = _prompts()
     keep = Request(prompt=p[2], max_new_tokens=8)
     live = Request(prompt=p[3], max_new_tokens=8)

@@ -104,7 +104,7 @@ def test_engine_tokens_match_jax_engine(jx, name):
     jeng = jx.ServeEngine(jcfg, jparams, backend="paged", use_kernel=False,
                           cache_dtype=jx.jnp.float32, **GEO)
     teng = ServeEngine(cfg, params, cache_dtype=torch.float32, device="cpu",
-                       **GEO)
+                       backend="paged", **GEO)
     outs = []
     for eng, req in ((jeng, jx.Request), (teng, Request)):
         assert eng.backend.prefix is None
@@ -129,7 +129,8 @@ def test_chunked_prefill_equals_whole_prompt_forward(name):
     cfg, params = _setup(name)
     eng = ServeEngine(cfg, params, batch_size=2, max_len=64, block_size=8,
                       prefill_chunk=8, prefix_cache=True,
-                      cache_dtype=torch.float32, device="cpu")
+                      cache_dtype=torch.float32, device="cpu",
+                      backend="paged")
     be = eng.backend
     assert be.prefix is None
     for layer in be.cache:
@@ -161,7 +162,8 @@ def test_chunked_prefill_equals_whole_prompt_forward(name):
 @pytest.mark.parametrize("name", ARCHS)
 def test_telemetry_parity_probe_and_cache_bytes(name):
     cfg, params = _setup(name)
-    geo = dict(batch_size=2, max_len=64, block_size=8, device="cpu")
+    geo = dict(batch_size=2, max_len=64, block_size=8, device="cpu",
+               backend="paged")
     outs, engs = [], []
     for telemetry in (False, True):
         eng = ServeEngine(cfg, params, telemetry=telemetry, **geo)
@@ -187,7 +189,8 @@ def test_telemetry_parity_probe_and_cache_bytes(name):
     # GEMM rounding by row count, scaled by the logits)
     served = dataclasses.replace(cfg, dtype="bfloat16")
     res = batch_variance_probe(served, params, [1, 2, 3, 4], batch_size=4,
-                               max_new_tokens=8, max_len=32, device="cpu")
+                               max_new_tokens=8, max_len=32, device="cpu",
+                               backend="paged")
     assert res["steps_compared"] > 0
     assert res["divergence"] < 1e-5
 
@@ -221,7 +224,7 @@ def test_serving_params_keep_ssm_f32_leaves():
     assert torch.equal(served, want)
     assert not torch.equal(moved, want)
     eng = ServeEngine(cfg, params, batch_size=1, max_len=64, block_size=8,
-                      prefill_chunk=32, device="cpu")
+                      prefill_chunk=32, device="cpu", backend="paged")
     assert eng.params["layers"][0]["ssm"]["A_log"].dtype == torch.float32
     prompt = _prompts()[3][:32]
     eng.submit(Request(prompt=prompt, max_new_tokens=1))
@@ -244,7 +247,7 @@ def test_paged_kernel_calls(name, monkeypatch):
     monkeypatch.setattr(tattn, "paged_decode_attend",
                         lambda *a, **kw: calls.append(1) or inner(*a, **kw))
     eng = ServeEngine(cfg, params, batch_size=2, max_len=64, block_size=8,
-                      device="cpu")
+                      device="cpu", backend="paged")
     for p in ([1, 2, 3, 4], [9, 8, 7]):
         eng.submit(Request(prompt=p, max_new_tokens=5))
     eng.run()
@@ -267,7 +270,8 @@ def test_engine_serves_on_the_card(card, name):
 
     cfg = reduced(get_config(name))
     params = lm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
-    eng = ServeEngine(cfg, params, batch_size=4, max_len=64, block_size=8)
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=64, block_size=8,
+                      backend="paged")
     reqs = [Request(prompt=list(p), max_new_tokens=8)
             for p in ([1, 2, 3, 4, 5], [9, 8, 7], [4] * 20, [2, 4, 6])]
     paged_decode_attend.launches = 0

@@ -431,8 +431,20 @@ def test_build_model_and_train_state():
         assert torch.equal(t, ref)
     with pytest.raises(NotImplementedError, match="ZeRO-1"):
         init_train_state(torch.Generator(), init, zero1=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(reduced(get_config("seamless-m4t-large-v2")))
+    # the encoder-decoder: (encdec_init, its loss, encdec_apply)
+    scfg = reduced(get_config("seamless-m4t-large-v2"))
+    init, loss_fn, apply_fn = build_model(scfg)
+    sparams = init(torch.Generator().manual_seed(0))
+    assert {"enc_layers", "dec_blocks", "enc_norm"} <= set(sparams)
+    assert len(sparams["enc_layers"]) == scfg.encoder_layers
+    sbatch = {"tokens": torch.tensor([[1, 2, 3, 4]]),
+              "embeds": torch.zeros(1, scfg.frontend.num_embeds,
+                                    scfg.frontend.embed_dim)}
+    loss, metrics = loss_fn(sparams, sbatch)
+    assert set(metrics) == {"loss", "aux_loss"} and np.isfinite(float(loss))
+    logits, (enc_out, _), _ = apply_fn(sparams, sbatch)
+    assert logits.shape == (1, 4, scfg.vocab_size)
+    assert enc_out.shape == (1, scfg.frontend.num_embeds, scfg.d_model)
     # the decoder-only LM: (init, next-token loss, apply)
     lcfg = reduced(get_config("qwen2-0.5b"))
     init, loss_fn, apply_fn = build_model(lcfg)
