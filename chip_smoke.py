@@ -78,9 +78,9 @@ prints no result line):
    ``ServeEngine(backend="paged")``; the kernel's launch count must equal
    decode steps x 24. A second kernel engine then runs the same requests,
    and a burst of 8 short ones that keeps every slot decoding, tick by
-   tick beside a gather-path engine (``use_kernel=False``), teacher
-   forced: the logits of every decoding row at every tick are held
-   against the gather engine's.
+   tick beside a gather-path engine (``use_kernel=False``), both
+   prefilling in chunks of 256, teacher forced: the logits of every
+   decoding row at every tick are held against the gather engine's.
 8. vit: full-width, full-depth soft-moe-b/16-128e (random f32 weights from
    a seeded generator, bf16 compute) classifies a batch of 64 images
    through ``vit_apply`` / ``vit_features`` on the kernel path and on the
@@ -212,8 +212,9 @@ prints no result line):
    step p50, tokens/s, peak memory and a profiled step.
 19. contiguous serve: ``ServeEngine(backend="contiguous")`` (the
    default: one 2048-slot ring row a slot, attention gathers the ring,
-   no kernel) serves full-width qwen2-0.5b over phase 7's trace beside
-   the paged gather engine (``use_kernel=False``): every request
+   no kernel) serves full-width qwen2-0.5b over phase 7's trace
+   (prefill chunks of 256) beside the paged gather engine
+   (``use_kernel=False``): every request
    finishes, K7 launches 0 times, decode p50, tok/s, peak_cache_bytes
    (8 x 2048 positions reserved) and peak memory of both; the two
    engines teacher forced within 5e-2 of max|ref| with the share of
@@ -243,6 +244,34 @@ prints no result line):
    x 512 tokens and 512 frames of 1024 of ``SyntheticSeq2Seq`` (no
    closing save): a finite loss within 1 of ln 256206, step p50,
    tokens/s, peak memory and a profiled step.
+22. serving stack: full-width qwen2-0.5b (phase 7's geometry and
+   16-request trace, prefill chunks of 256, random weights, bf16) served
+   through
+   ``AsyncServer`` over a paged kernel engine with span tracing and a
+   256-tick flight recorder, 8 requests by ``generate`` and 8 by
+   ``submit`` + ``stream``, concurrent: every request finishes, streams
+   equal the final tokens, tokens bitwise equal to the same engine
+   driven directly with tracing off, K7 = decode model calls x 24, every
+   span timeline valid, ``/metrics`` fetched over the server's socket
+   parses strictly, ``/healthz`` ok, a recorder dump with the
+   reference's record keys; the decode tick p50 of one direct drive with
+   span tracing off and on in turns (off, on, on, off).
+   Speculative decoding (k = 4) on both backends in bf16 and f32 over 8
+   prompts of repeated motifs: the verify lanes teacher forced on the
+   plain stream (an oracle drafter) against the plain engine's decode
+   logits (bf16: within 5e-2 of max|ref|; f32: greedy tokens of the
+   n-gram engine equal up to the first step whose top-2 margin is below
+   that distance), K7 0 on the speculative engines, leak-free pools,
+   acceptance, calls per token, step p50 and tok/s beside the plain
+   engine's. ``run_chaos`` at full width on the paged kernel engine
+   (traced, leak-free), with an injected kernel failure (it surfaces from
+   one tick, once, the rows of the failed call end in "error", every
+   request terminal, the engine keeps launching K7), on the contiguous
+   backend and on the speculative engine with a garbage drafter. A
+   two-turn continuation with ``cache_generated`` gets prefix hits past
+   its first prompt; a row forked with ``fork_slot`` shares its blocks
+   at refcount 2 until its first write copies one, and decodes its
+   source's greedy tokens.
 
 Each phase logs its wall time. The lines before the last carry the
 numbers: the card line as
@@ -2027,16 +2056,18 @@ def phase_serve(torch, card):
 
     # Kernel engine against the gather engine (use_kernel=False), teacher
     # forced: the serving trace above, then a burst of 8 short prompts
-    # that keeps all 8 slots decoding at once.
+    # that keeps all 8 slots decoding at once. Prompts prefill in chunks
+    # of 256 here: the comparison is about the decode logits.
     rng = np.random.RandomState(1)
     burst = [rng.randint(1, cfg.vocab_size, size=n).tolist()
              for n in range(16, 48, 4)]
     ticks = []
     odecode_s = []
+    tf_geo = dict(geo, prefill_chunk=256)
     for trace, n_new in ((prompts, max_new), (burst, 48)):
-        oracle = ServeEngine(cfg, params, use_kernel=False, **geo)
+        oracle = ServeEngine(cfg, params, use_kernel=False, **tf_geo)
         times = timed_decode(torch, oracle)
-        ticks += teacher_forced(torch, ServeEngine(cfg, params, **geo),
+        ticks += teacher_forced(torch, ServeEngine(cfg, params, **tf_geo),
                                 oracle, trace, n_new)
         odecode_s += times
         del oracle
@@ -4389,7 +4420,7 @@ def phase_contiguous_serve(torch, card):
     del warm
     runs = {}
     for name, kw in (("contiguous", {}), ("paged gather", paged)):
-        eng = ServeEngine(cfg, params, **kw, **geo)
+        eng = ServeEngine(cfg, params, prefill_chunk=256, **kw, **geo)
         torch.cuda.reset_peak_memory_stats()
         paged_decode_attend.launches = 0
         reqs, wall, decode_s = run_engine(torch, eng, prompts, max_new)
@@ -4799,6 +4830,529 @@ def phase_seamless_train(torch, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the serving stack (server, speculative decoding, chaos)
+# ---------------------------------------------------------------------------
+
+# The keys of the reference engine's tick record
+# (src/repro/serve/engine.py, ServeEngine.step) on the paged backend.
+RECORD_KEYS = {"tick", "t", "wall_s", "queued", "live", "decode_rows",
+               "admitted", "prefilled", "emitted", "kernel_fallbacks",
+               "jit_cache_sizes", "programs", "blocks_free", "blocks_used",
+               "blocks_live", "slots_free", "slots_total"}
+
+def spec_prompts(np, vocab, seed=3):
+    """8 prompts of a random 12..24-token motif repeated 3..6 times (the
+    n-gram drafter's home ground), then a few random tokens."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(8):
+        motif = rng.randint(1, vocab, size=rng.randint(12, 25)).tolist()
+        out.append(motif * rng.randint(3, 7)
+                   + rng.randint(1, vocab, size=3).tolist())
+    return out
+
+
+class LogitTap:
+    """Record an engine's decode logits (the plain engine) or hold its
+    verify logits against them (the speculative engine), keyed by
+    (request, position of the token consumed). The verify engine drafts
+    the plain stream (``OracleDrafter``); a verify lane is compared only
+    where its whole context is the plain stream (the committed tokens and
+    the lanes up to it), so each compared lane is teacher forced on it.
+    Once the speculative engine commits a token the plain engine did not,
+    that row's later lanes are not compared."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ref = {}  # (req index, pos) -> plain logits row
+        self.margin = {}  # (req index, pos) -> top-2 margin of that row
+        self.diffs = []  # (max |verify - decode|, max |decode|) per lane
+        self.streams = None  # the plain engine's prompt + output per req
+
+    def wrap(self, eng, phase, index):
+        inner = getattr(eng.backend, phase)
+
+        def call(params, toks, pos):
+            out = inner(params, toks, pos)
+            rows = {s: (index[id(e.req)], e.req.prompt + e.req.out)
+                    for s, e in eng.sched.live.items()}
+            p = pos.reshape(pos.shape[0], -1).cpu().numpy()
+            t = toks.reshape(toks.shape[0], -1).cpu().numpy()
+            for slot, (r, ctx) in rows.items():
+                forced = phase == "decode" or (
+                    self.streams[r][:len(ctx)] == ctx)
+                for j in range(p.shape[1]):
+                    if p[slot, j] < 0:
+                        continue
+                    q = int(p[slot, j])
+                    if phase == "verify":
+                        forced = forced and (
+                            q < len(self.streams[r])
+                            and int(t[slot, j]) == self.streams[r][q])
+                        if not forced:
+                            break
+                    key = (r, q)
+                    row = out[slot, j].float()
+                    if phase == "decode":
+                        self.ref[key] = row
+                        top = self.torch.topk(row, 2).values.cpu()
+                        self.margin[key] = float(top[0] - top[1])
+                    elif key in self.ref:
+                        want = self.ref[key]
+                        self.diffs.append((
+                            (row - want).abs().max().item(),
+                            want.abs().max().item()))
+            return out
+
+        setattr(eng.backend, phase, call)
+
+
+class OracleDrafter:
+    """Drafts the plain engine's own continuation where the context is a
+    prefix of a plain stream (teacher forcing for the verify lanes)."""
+
+    def __init__(self, streams):
+        self.streams = streams
+
+    def propose(self, context, k):
+        for s in self.streams:
+            if s[:len(context)] == list(context):
+                return s[len(context):len(context) + k]
+        return []
+
+
+def spec_compare(torch, np, cfg, params, card, backend, dtype):
+    """One backend, one dtype: the plain engine, the speculative engine
+    teacher forced on the plain stream, and the speculative engine with
+    the n-gram drafter, over ``spec_prompts``. Returns the summary."""
+    from repro_torch.kernels.paged_attention import paged_decode_attend
+    from repro_torch.serve import (
+        Request,
+        ServeEngine,
+        SpecConfig,
+        assert_leak_free,
+    )
+
+    # whole prompts in one chunk: the comparison is about decode
+    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda",
+               backend=backend, cache_dtype=dtype, prefill_chunk=256)
+    prompts = spec_prompts(np, cfg.vocab_size)
+    max_new = 32
+    tap = LogitTap(torch)
+
+    def drive(eng, phase=None):
+        """Serve the prompts; the timing wrapper goes on first, so the tap
+        (outside it) is not timed."""
+        reqs = [Request(prompt=list(p), max_new_tokens=max_new)
+                for p in prompts]
+        step_s = (timed_verify if eng._spec else timed_decode)(torch, eng)
+        if phase:
+            tap.wrap(eng, phase, {id(r): i for i, r in enumerate(reqs)})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not all(r.done and r.finish_reason == "length" for r in reqs):
+            raise AssertionError("a request did not finish with 'length'")
+        return [r.out for r in reqs], wall, step_s
+
+    plain = ServeEngine(cfg, params, **geo)
+    l0 = paged_decode_attend.launches
+    want, pwall, pstep = drive(plain, "decode")
+    if backend == "paged" and (paged_decode_attend.launches - l0
+                               != plain.decode_steps * cfg.num_layers):
+        raise AssertionError("K7 launches != decode model calls x layers")
+    streams = [list(p) + o for p, o in zip(prompts, want)]
+    tap.streams = streams
+    oracle = ServeEngine(cfg, params, spec=SpecConfig(
+        k=4, drafter=OracleDrafter(streams), disable_after_rejects=0), **geo)
+    drive(oracle, "verify")
+    spec = ServeEngine(cfg, params, spec=SpecConfig(k=4), **geo)
+    l0 = paged_decode_attend.launches
+    out, swall, sstep = drive(spec)
+    if paged_decode_attend.launches != l0:
+        raise AssertionError("the speculative engine launched K7")
+    assert_leak_free(spec)
+    n_tok = sum(len(o) for o in want)
+    equal = sum(a == b for o, w in zip(out, want) for a, b in zip(o, w))
+    dist = max(d for d, _ in tap.diffs)
+    rel = max(d / r for d, r in tap.diffs)
+    st = spec.spec_stats()
+    res = {"equal": equal / n_tok, "dist": dist, "rel": rel,
+           "lanes": len(tap.diffs), "accept": st["acceptance_rate"],
+           "calls_per_token": st["calls_per_token"],
+           "plain_p50": statistics.median(pstep) * 1e3,
+           "spec_p50": statistics.median(sstep) * 1e3,
+           "plain_tok_s": n_tok / pwall, "spec_tok_s": n_tok / swall,
+           "plain_calls": plain.decode_steps, "spec_calls": spec.decode_steps}
+    first = None
+    if dtype == torch.float32:
+        # greedy tokens must agree up to the first step whose top-2
+        # margin is below the measured verify-vs-decode distance
+        for r, (o, w) in enumerate(zip(out, want)):
+            p = len(prompts[r])
+            for s in range(1, max_new):
+                m = tap.margin.get((r, p + s - 1))
+                if m is not None and m < dist:
+                    first = min(first or s, s)
+                    break
+                if o[s] != w[s] or o[0] != w[0]:
+                    raise AssertionError(
+                        f"f32 speculative token differs at request {r} "
+                        f"step {s}, margin {m} >= distance {dist}")
+        res["first_close_step"] = first
+    elif rel > 5e-2:
+        raise AssertionError(f"verify logits {rel:.3e} of max|ref| from the "
+                             "decode logits (tol 5e-2)")
+    log(f"[stack] spec {backend} {str(dtype)[6:]} ({card}): {res['lanes']} "
+        f"verify lanes teacher forced on the plain stream, max_abs_diff "
+        f"{dist:.3e}, max|diff|/max|ref| {rel:.3e}; greedy tokens equal "
+        f"{equal}/{n_tok} = {res['equal']:.4f}"
+        + (f"; first step with top-2 margin < distance: {first}"
+           if dtype == torch.float32 else "")
+        + f"; acceptance {st['acceptance_rate']:.4f}, {st['verify_calls']} "
+        f"verify calls for {st['tokens_emitted']} tokens (calls/token "
+        f"{st['calls_per_token']:.4f} batched), plain {plain.decode_steps} "
+        f"decode calls; step p50 verify {res['spec_p50']:.2f} ms vs decode "
+        f"{res['plain_p50']:.2f} ms; {res['spec_tok_s']:.1f} vs "
+        f"{res['plain_tok_s']:.1f} tok/s; K7 0 on the speculative engine, "
+        f"pool leak-free")
+    return res
+
+
+def timed_verify(torch, eng):
+    """``timed_decode`` for a speculative engine's verify program."""
+    verify_s = []
+    inner = eng.backend.verify
+
+    def verify(*a):
+        t0 = time.perf_counter()
+        out = inner(*a)
+        torch.cuda.synchronize()
+        verify_s.append(time.perf_counter() - t0)
+        return out
+
+    eng.backend.verify = verify
+    return verify_s
+
+
+async def http_get(host, port, path):
+    import asyncio
+
+    reader, writer = await asyncio.open_connection(host, port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: _\r\n\r\n".encode("ascii"))
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), body.decode("utf-8")
+
+
+def serve_through_server(torch, eng, prompts, max_new):
+    """Serve ``prompts`` through an ``AsyncServer`` over ``eng``: even
+    requests by ``generate``, odd ones by ``submit`` + ``stream``, all
+    concurrent; then scrape /metrics and /healthz over the server's HTTP
+    socket. Returns (requests in prompt order, streamed tokens, wall s,
+    /metrics text, /healthz status and body)."""
+    import asyncio
+
+    from repro_torch.serve import AsyncServer, ServerConfig
+
+    seen = []
+    submit = eng.submit
+
+    def record(req):
+        seen.append(req)
+        submit(req)
+
+    eng.submit = record
+
+    async def one(srv, i, p):
+        toks = []
+        if i % 2 == 0:
+            async for t in srv.generate(p, max_new_tokens=max_new):
+                toks.append(t)
+        else:
+            req = await srv.submit(p, max_new_tokens=max_new)
+            async for t in srv.stream(req):
+                toks.append(t)
+        return toks
+
+    async def go():
+        scfg = ServerConfig(metrics_port=0, max_queue=len(prompts))
+        async with AsyncServer(eng, scfg) as srv:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            streamed = await asyncio.gather(
+                *[one(srv, i, list(p)) for i, p in enumerate(prompts)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            host, port = srv.metrics_addr
+            metrics = await http_get(host, port, "/metrics")
+            health = await http_get(host, port, "/healthz")
+        return streamed, wall, metrics, health
+
+    streamed, wall, metrics, health = asyncio.run(go())
+    eng.submit = submit
+    by_prompt = {tuple(r.prompt): r for r in seen}
+    return ([by_prompt[tuple(p)] for p in prompts], streamed, wall,
+            metrics, health)
+
+
+def tracing_cost(torch, eng, prompts, max_new):
+    """The tracer's cost: the same direct drive of ``eng`` with span
+    tracing off and on in turns (off, on, on, off). The spans are host
+    work in the tick, so each whole tick is timed (synchronised), and only
+    decode ticks (every live row decoding, none queued) are kept. Returns
+    the tick p50 off and on, in seconds, and the ticks kept of each."""
+    from repro_torch.serve import Request
+    from repro_torch.serve.tracing import Tracer
+
+    ticks = {False: [], True: []}
+    for on in (False, True, True, False):
+        eng.tracer = Tracer() if on else None
+        reqs = [Request(prompt=list(p), max_new_tokens=max_new)
+                for p in prompts]
+        for r in reqs:
+            eng.submit(r)
+        while eng.sched.pending():
+            decode = not eng.sched.queue and all(
+                e.state == "decode" for e in eng.sched.live.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            if decode:
+                ticks[on].append(time.perf_counter() - t0)
+    eng.tracer = None
+    return (statistics.median(ticks[False]), statistics.median(ticks[True]),
+            len(ticks[False]), len(ticks[True]))
+
+
+def phase_serving_stack(torch, card):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_decode_attend
+    from repro_torch.models import lm_init
+    from repro_torch.serve import (
+        GarbageDrafter,
+        Request,
+        ServeEngine,
+        SpecConfig,
+        parse_prometheus,
+        run_chaos,
+        validate_timeline,
+    )
+
+    cfg = get_config("qwen2-0.5b")
+    params = lm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    L = cfg.num_layers
+    geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda",
+               backend="paged")
+    prompts = make_requests(np, cfg.vocab_size)
+    max_new = 32
+    # the server's trace prefills in chunks of 256: the checks are about
+    # the stack around the engine, and the time limit is shared
+    sgeo = dict(geo, prefill_chunk=256)
+    paged_decode_attend.launches = 0
+    k7 = 0  # launches counted against each kernel engine's model calls
+
+    def count(eng, l0):
+        n = paged_decode_attend.launches - l0
+        if n != eng.decode_steps * L or n == 0:
+            raise AssertionError(f"K7 launches {n} != decode model calls "
+                                 f"{eng.decode_steps} x {L}")
+        return n
+
+    warm = ServeEngine(cfg, params, **geo)
+    run_engine(torch, warm, prompts[1:3], 4)
+    k7 += count(warm, 0)
+    del warm
+
+    # a. the server over the traced kernel engine, against the same engine
+    # driven directly with tracing off
+    direct = ServeEngine(cfg, params, **sgeo)
+    l0 = paged_decode_attend.launches
+    dreqs, dwall, ddec = run_engine(torch, direct, prompts, max_new)
+    k7 += count(direct, l0)
+    eng = ServeEngine(cfg, params, trace=True, flight_recorder=256, **sgeo)
+    l0 = paged_decode_attend.launches
+    reqs, streamed, wall, metrics, health = serve_through_server(
+        torch, eng, prompts, max_new)
+    k7 += count(eng, l0)
+    if not all(r.done and r.finish_reason == "length" for r in reqs):
+        raise AssertionError("a served request did not finish")
+    if [r.out for r in reqs] != streamed:
+        raise AssertionError("streamed tokens differ from the final tokens")
+    if [r.out for r in reqs] != [r.out for r in dreqs]:
+        raise AssertionError("the server's tokens differ from the engine "
+                             "driven directly with tracing off")
+    for r in reqs:
+        validate_timeline(r)
+    status, body = metrics
+    parsed = parse_prometheus(body)
+    c = parsed["counters"]
+    if status != 200 or c["repro_serve_completed_total"] != len(prompts):
+        raise AssertionError(f"/metrics: status {status}, counters {c}")
+    hstatus, hbody = health
+    if hstatus != 200 or json.loads(hbody)["status"] != "ok":
+        raise AssertionError(f"/healthz: {hstatus} {hbody}")
+    dump = eng.recorder.dump("chip_smoke")
+    keys = set(dump["records"][-1])
+    if keys != RECORD_KEYS:
+        raise AssertionError(f"tick record keys {sorted(keys)}")
+    n_tok = sum(len(r.out) for r in reqs)
+    spans = sum(len(r.spans) for r in reqs)
+    l0 = paged_decode_attend.launches
+    steps0 = direct.decode_steps
+    off, on, n_off, n_on = tracing_cost(torch, direct, prompts[:8], 24)
+    n = paged_decode_attend.launches - l0
+    if n != (direct.decode_steps - steps0) * L:
+        raise AssertionError("K7 launches != decode model calls x layers")
+    k7 += n
+    log(f"[stack] server ({card}): {len(reqs)} requests (8 by generate, 8 "
+        f"by submit + stream, concurrent) bitwise equal to the engine "
+        f"driven directly with tracing off, streams equal to the final "
+        f"tokens, {spans} spans, every timeline valid; {n_tok / wall:.1f} "
+        f"tok/s through the server vs {n_tok / dwall:.1f} direct; decode "
+        f"p50 {statistics.median(ddec) * 1e3:.2f} ms direct; span tracing "
+        f"on the same direct drive in turns (off, on, on, off; 8 requests "
+        f"x 24 tokens): decode tick p50 {on * 1e3:.2f} ms on vs "
+        f"{off * 1e3:.2f} ms off over {n_on} / {n_off} ticks, on/off "
+        f"{on / off:.4f}; K7 launches {eng.decode_steps} x {L}; "
+        f"/metrics {len(body.splitlines())} lines parse "
+        f"({len(c)} counters, {len(parsed['histograms'])} histograms, "
+        f"{len(parsed['gauges'])} gauges), /healthz ok; the recorder dump "
+        f"holds {len(dump['records'])} of {dump['ticks_seen']} ticks with "
+        f"the reference's {len(RECORD_KEYS)} keys")
+    del direct, eng
+
+    # b. speculative decoding on both backends, bf16 and f32
+    spec = {}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    for dtype, c_ in ((torch.bfloat16, cfg), (torch.float32, cfg32)):
+        for backend in ("paged", "contiguous"):
+            l0 = paged_decode_attend.launches
+            spec[backend, dtype] = spec_compare(
+                torch, np, c_, params, card, backend, dtype)
+            k7 += paged_decode_attend.launches - l0
+
+    # c. run_chaos at full width
+    chaos = {}
+    for label, kw, kfail in (
+            ("paged kernel", dict(trace=True, flight_recorder=64), False),
+            ("paged kernel, injected kernel failure", {}, True),
+            ("contiguous", dict(backend="contiguous"), False),
+            ("speculative, garbage drafter",
+             dict(prefix_cache=False, spec=SpecConfig(
+                 drafter=GarbageDrafter(cfg.vocab_size, seed=0),
+                 disable_after_rejects=2)), False)):
+        eng = ServeEngine(cfg, params, max_queue=8, **{**geo, **kw})
+        l0 = paged_decode_attend.launches
+        stats = run_chaos(eng, n_requests=24, seed=0, kernel_failure=kfail)
+        n = paged_decode_attend.launches - l0
+        if kfail and (stats["kernel_failures_surfaced"] != 1
+                      or stats["finish_error"] < 1
+                      or not eng.backend.use_kernel):
+            raise AssertionError(f"the injected kernel failure: {stats}")
+        if label.startswith("paged kernel"):
+            k7 += count(eng, l0)
+        elif n != 0:
+            raise AssertionError(f"{label}: K7 launched {n} times")
+        chaos[label] = stats
+        log(f"[stack] run_chaos {label}: leak-free; "
+            + ", ".join(f"{k}={v}" for k, v in sorted(stats.items())))
+
+    # d. cache_generated and fork_slot
+    rng = np.random.RandomState(4)
+    first = rng.randint(1, cfg.vocab_size, size=64).tolist()
+    eng = ServeEngine(cfg, params, cache_generated=True, **geo)
+    l0 = paged_decode_attend.launches
+    r1 = Request(prompt=first, max_new_tokens=40)
+    eng.submit(r1)
+    eng.run()
+    follow = first + r1.out + rng.randint(1, cfg.vocab_size, 8).tolist()
+    r2 = Request(prompt=follow, max_new_tokens=16)
+    eng.submit(r2)
+    eng._admit()
+    start = next(iter(eng.sched.live.values())).start_pos
+    eng.run()
+    k7 += count(eng, l0)
+    if start <= len(first):
+        raise AssertionError(f"no prefix hit past the first prompt "
+                             f"({start} <= {len(first)})")
+    hits = eng.backend.prefix.hits
+    cold = ServeEngine(cfg, params, **geo)
+    l0 = paged_decode_attend.launches
+    (rc,), _, _ = run_engine(torch, cold, [follow], 16)
+    k7 += count(cold, l0)
+    cold_eq = sum(a == b for a, b in zip(r2.out, rc.out))
+    eng = ServeEngine(cfg, params, prefix_cache=False, **geo)
+    be = eng.backend
+    l0 = paged_decode_attend.launches
+    eng.submit(Request(prompt=first, max_new_tokens=24))
+    while not eng.sched.decode_entries():
+        eng.step()
+    (e,) = eng.sched.live.values()
+    src = e.slot
+    shared = [int(b) for b in be.tables[src] if b]
+    clone = be.fork_slot(src)
+    if (clone is None or not all(be.mgr.ref[b] == 2 for b in shared)
+            or not np.array_equal(be.tables[src], be.tables[clone])):
+        raise AssertionError("fork_slot did not share every block")
+    used = be.mgr.num_used
+    rows = [src, clone]
+    logits = eng._logits[[src, src]]
+    pos = e.pos
+    outs = [list(e.req.out), list(e.req.out)]
+    calls = 0
+    for step in range(16):
+        toks = logits.argmax(-1)
+        for i in range(2):
+            outs[i].append(int(toks[i]))
+        for slot in rows:
+            if not be.ensure_decode_block(slot, pos):
+                raise AssertionError("the pool ran out of blocks")
+        if step == 0 and (be.mgr.num_used != used + 1 or be.tables[src][
+                pos // 16] == be.tables[clone][pos // 16]):
+            raise AssertionError("the first write did not copy the shared "
+                                 "block")
+        in_toks = torch.zeros(8, 1, dtype=torch.long, device="cuda")
+        in_pos = torch.full((8,), -1, dtype=torch.int32, device="cuda")
+        in_toks[rows, 0] = toks
+        in_pos[rows] = pos
+        logits = be.decode(eng.params, in_toks, in_pos)[rows, 0]
+        calls += 1
+        pos += 1
+    n = paged_decode_attend.launches - l0
+    if n != (eng.decode_steps + calls) * L:
+        raise AssertionError("K7 launches != decode model calls x layers")
+    k7 += n
+    if outs[0] != outs[1]:
+        raise AssertionError("the forked row's tokens differ from its "
+                             "source's")
+    log(f"[stack] cache_generated: the follow-up prompt ({len(follow)} "
+        f"tokens) admitted at {start} > {len(first)} (hits past the first "
+        f"prompt), radix block hits {hits}; its tokens "
+        f"vs a cold engine's {cold_eq}/{len(rc.out)} equal (bf16: the hit "
+        f"reuses K/V written by decode steps); fork_slot: {len(shared)} "
+        f"blocks shared at refcount 2, the first write copied one, "
+        f"{len(outs[0])} greedy tokens of the fork equal its source's")
+    if paged_decode_attend.launches != k7:
+        raise AssertionError(f"K7 launches {paged_decode_attend.launches} "
+                             f"not all accounted ({k7})")
+    log(f"[stack] K7 launches in the phase: {k7}, each = decode model "
+        f"calls x {L} of a kernel engine")
+    return {"paged_decode_attend": k7}
+
+
 def _get(tree, path):
     for k in path:
         tree = tree[k]
@@ -4843,6 +5397,8 @@ def main():
         timed(phase_contiguous_serve, torch, card)
         timed(phase_seamless_serve, torch, card)
         timed(phase_seamless_train, torch, card)
+        launches["paged_decode_attend"] += timed(
+            phase_serving_stack, torch, card)["paged_decode_attend"]
         log(f"[phase] all phases: {time.perf_counter() - t0:.1f} s wall")
     except Exception as e:  # noqa: BLE001 — report which phase failed
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr,

@@ -263,6 +263,37 @@ def reset_kv_rows(cache, row):
     return cache
 
 
+def invalidate_kv_positions(cache, positions):
+    """Speculative-decoding rollback on the ring, in place: pos -> -1 at
+    each row's ring slot for the (B, W) absolute ``positions``; lanes
+    below 0 drop. The rejected draft tokens' entries were already
+    unreachable (causal masking hides them until the row's own writes
+    replace them); clearing them leaves the cache EQUAL to never having
+    drafted. The entries to clear are counted per slot first and
+    cleared by a mask, so no two lanes ever store to one entry."""
+    _, slots, ok = _ring_slots(cache, positions)
+    pos = cache["pos"]
+    hits = torch.zeros_like(pos).scatter_add_(1, slots, ok.to(pos.dtype))
+    pos.masked_fill_(hits > 0, -1)
+    return cache
+
+
+def invalidate_paged_positions(cache, positions, tables):
+    """Paged analogue of `invalidate_kv_positions`, in place: pos -> -1
+    through the block tables for the (B, W) ``positions``; lanes below 0
+    and null-block entries drop. Blocks that held only rejected tokens
+    are un-reserved separately (``PagedBackend.rollback_burst``); this
+    clears rejected entries inside blocks the row keeps."""
+    _, phys, off, ok = _paged_address(cache, positions, tables)
+    pos = cache["pos"]
+    bs_blk = pos.shape[1]
+    hits = torch.zeros(pos.numel(), dtype=pos.dtype, device=pos.device)
+    hits.index_add_(0, (phys * bs_blk + off).flatten(),
+                    ok.flatten().to(pos.dtype))
+    pos.masked_fill_(hits.view(pos.shape) > 0, -1)
+    return cache
+
+
 def _paged_address(cache, positions, tables):
     """Block-table addressing of every paged-cache writer: (B?,S)
     absolute positions -> ((B,S) positions, (B,S) physical block, (B,S)

@@ -9,7 +9,8 @@ PLACE by those programs (the JAX package replaces them functionally and
 donates the old buffers; nothing here needs donation).
 
 Unlike the JAX backend there is no permanent kernel-to-gather fallback:
-with ``use_kernel=True`` a kernel that fails to build or launch raises.
+with ``use_kernel=True`` a kernel that fails to build or launch raises
+out of ``decode`` (the engine retires the rows of the failed call).
 ``use_kernel=False`` is the caller's explicit choice of the gather path,
 the oracle the kernel is tested against.
 """
@@ -29,8 +30,10 @@ from .programs import (
     clear_blocks_program,
     clear_ssm_slot_program,
     copy_blocks_program,
+    invalidate_positions_paged_program,
     make_decode_step_paged,
     make_prefill_chunk_paged,
+    make_verify_step_paged,
 )
 
 
@@ -130,13 +133,18 @@ class PagedBackend(CacheBackend):
     crosses block boundaries; when the free list runs dry the prefix cache
     evicts LRU-first, and if that is not enough the engine preempts the
     row (requeues it).
+
+    ``cache_generated`` also publishes a retired request's generated
+    tokens into the radix tree (``cache_finished``), so a multi-turn
+    continuation gets prefix hits past its first prompt.
     """
 
     def __init__(self, cfg, num_slots: int, max_len: int,
                  dtype=torch.bfloat16, block_size: int = 16,
                  num_blocks: Optional[int] = None,
                  prefix_cache: bool = True, use_kernel: bool = True,
-                 telemetry: bool = False, device="cuda"):
+                 cache_generated: bool = False, telemetry: bool = False,
+                 device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_slots = num_slots
@@ -158,6 +166,9 @@ class PagedBackend(CacheBackend):
             RadixPrefixCache(block_size)
             if prefix_cache and not cfg.has_ssm() else None
         )
+        # Opt-in: the tree then keeps generation blocks until LRU
+        # eviction, trading pool headroom for hits.
+        self.cache_generated = cache_generated and self.prefix is not None
         self.tables = np.zeros((num_slots, self.blocks_per_row), np.int32)
         self._tables_dev = None  # rebuilt lazily when tables change
         self._free_slots: List[int] = list(range(num_slots - 1, -1, -1))
@@ -172,6 +183,8 @@ class PagedBackend(CacheBackend):
         self._prefill_chunk = make_prefill_chunk_paged(cfg,
                                                        telemetry=telemetry)
         self._decode = make_decode_step_paged(cfg, use_kernel=use_kernel,
+                                              telemetry=telemetry)
+        self._verify = make_verify_step_paged(cfg, use_kernel=use_kernel,
                                               telemetry=telemetry)
 
     # -- CacheBackend ------------------------------------------------------
@@ -254,7 +267,39 @@ class PagedBackend(CacheBackend):
         """Make position `pos` writable for `slot`: allocate the logical
         block if the table has none (evicting prefix LRU under pressure),
         copy-on-write if it is shared. False = out of memory (preempt)."""
-        lb = pos // self.block_size
+        return self._ensure_logical_block(slot, pos // self.block_size)
+
+    def reserve_burst(self, slot: int, start: int, n: int) -> int:
+        """Make positions [start, start+n) writable for a speculative
+        burst: secure (alloc, or copy-on-write of a shared block) every
+        logical block in range, in order, evicting prefix LRU under
+        pressure. Returns the number of leading positions covered: a
+        partial reservation shrinks the burst, and 0 means even the
+        pending token's position could not be secured (preempt)."""
+        bs = self.block_size
+        end = min(start + n, self.max_len)
+        covered = 0
+        for lb in range(start // bs, -(-end // bs)):
+            if not self._ensure_logical_block(slot, lb):
+                break
+            covered = min(end, (lb + 1) * bs) - start
+        return max(0, min(covered, n))
+
+    def rollback_burst(self, slot: int, next_pos: int):
+        """Un-reserve blocks that exist only to hold rejected draft
+        positions beyond ``next_pos`` (the row's next write position):
+        afterwards the table and refcounts are the never-having-drafted
+        state, blocks covering positions <= next_pos."""
+        row = self.tables[slot]
+        for lb in range(next_pos // self.block_size + 1,
+                        self.blocks_per_row):
+            blk = int(row[lb])
+            if blk != 0:
+                self.mgr.decref(blk)
+                row[lb] = 0
+                self._tables_dev = None
+
+    def _ensure_logical_block(self, slot: int, lb: int) -> bool:
         blk = int(self.tables[slot, lb])
         if blk == 0:
             if not self._reserve(1):
@@ -275,15 +320,62 @@ class PagedBackend(CacheBackend):
             self._touch_live_hw()  # divergence: one more unique block
         return True
 
-    def decode(self, params, toks, pos):
+    def _run(self, phase, *args):
         if self._tables_dev is None:
             self._tables_dev = torch.as_tensor(self.tables,
                                                device=self.device)
-        out = self._decode(params, toks, pos, self._tables_dev, self.cache)
+        program = self._decode if phase == "decode" else self._verify
+        out = program(*args, self._tables_dev, self.cache)
         if self.telemetry:
-            self.last_telemetry = ("decode", out[1])
+            self.last_telemetry = (phase, out[1])
             return out[0]
         return out
+
+    def decode(self, params, toks, pos):
+        return self._run("decode", params, toks, pos)
+
+    def verify(self, params, toks, poss):
+        return self._run("verify", params, toks, poss)
+
+    def invalidate_positions(self, positions):
+        if self._tables_dev is None:
+            self._tables_dev = torch.as_tensor(self.tables,
+                                               device=self.device)
+        invalidate_positions_paged_program(self.cache, positions,
+                                           self._tables_dev)
+
+    def cache_finished(self, entry):
+        """Publish the retiring request's prompt+output chain into the
+        radix tree (``cache_generated``): a repeat or multi-turn
+        continuation then gets prefix hits past the original prompt
+        boundary. Only full blocks are inserted, and the last emitted
+        token is left out: it was sampled but never fed, so its K/V entry
+        is unwritten."""
+        if not self.cache_generated or entry.req.no_prefix_cache:
+            return
+        toks = list(entry.req.prompt) + list(entry.req.out[:-1])
+        n_full = len(toks) // self.block_size
+        if n_full == 0:
+            return
+        row = self.tables[entry.slot]
+        self.prefix.insert(toks[: n_full * self.block_size],
+                           [int(b) for b in row[:n_full]], self.mgr)
+
+    def fork_slot(self, src_slot: int) -> Optional[int]:
+        """Fork a live row into a fresh slot sharing ALL its blocks
+        (copy-on-write): the clone diverges block by block as either row
+        writes. Returns the new slot, or None when no slot is free. SSM
+        rows are per slot, so they are copied by value."""
+        if not self._free_slots:
+            return None
+        slot = self._free_slots.pop()
+        self.tables[slot] = self.mgr.fork_table(self.tables[src_slot])
+        self._tables_dev = None
+        self._touch_live_hw()
+        for layer in self.cache:
+            for t in layer.get("ssm", {}).values():
+                t[slot].copy_(t[src_slot])
+        return slot
 
     def retire(self, slot: int):
         row = self.tables[slot]
@@ -294,6 +386,27 @@ class PagedBackend(CacheBackend):
         self._tables_dev = None
         assert slot not in self._free_slots, f"double retire of slot {slot}"
         self._free_slots.append(slot)
+
+    def token_capacity(self) -> int:
+        return (self.num_blocks - 1) * self.block_size
+
+    def tokens_free(self) -> int:
+        """Token positions admission control can still promise: the free
+        list plus tree-retained blocks no live table references (LRU
+        eviction reclaims those)."""
+        live = np.unique(self.tables[self.tables != 0]).size
+        reclaimable = max(0, self.mgr.num_used - int(live))
+        return (self.mgr.num_free + reclaimable) * self.block_size
+
+    def occupancy(self) -> dict:
+        live = int(np.unique(self.tables[self.tables != 0]).size)
+        return {
+            "blocks_free": self.mgr.num_free,
+            "blocks_used": self.mgr.num_used,
+            "blocks_live": live,
+            "slots_free": len(self._free_slots),
+            "slots_total": self.num_slots,
+        }
 
     def bytes_per_block(self) -> int:
         return sum(t.numel() * t.element_size() // self.num_blocks

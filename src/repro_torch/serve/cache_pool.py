@@ -17,9 +17,11 @@ positions, so admitting or retiring one row never touches another.
 
 Two backends implement ``CacheBackend``: ``ContiguousBackend`` below
 (one ``max_len`` row per slot; the engine's default, as in the
-reference) and ``PagedBackend`` (``serve/block_manager.py``).
-Speculative decoding (verify, burst reservation and rollback) is not
-ported: its hooks raise.
+reference) and ``PagedBackend`` (``serve/block_manager.py``). Both
+serve speculative decoding (``serve/spec_decode.py``): a (B, k+1) verify
+step and the scrub of rejected lanes; the contiguous pool reserves
+``max_len`` a row up front, so burst reservation and rollback are
+no-ops here.
 """
 from __future__ import annotations
 
@@ -31,9 +33,6 @@ from ..layers.attention import reset_kv_rows
 from ..layers.common import resolve_device
 from ..layers.ssm import reset_ssm_rows
 from ..models import init_cache
-
-_SPEC = "speculative decoding is not ported yet"
-
 
 def clear_slot(cache, slot: int):
     """Invalidate row ``slot`` of every layer in place: attention pos ->
@@ -149,22 +148,60 @@ class CacheBackend:
         """One batched decode step over all slots; returns logits."""
         raise NotImplementedError
 
+    # -- speculative decoding (serve/spec_decode.py) -----------------------
+
     def verify(self, params, toks, poss):
-        """Speculative decoding's multi-token verify step (not ported)."""
-        raise NotImplementedError(_SPEC)
+        """One batched multi-token verify step: toks/poss are (B, k+1)
+        with lane 0 = each row's pending token; returns (B, k+1, V)
+        logits. Lanes with position -1 write nothing."""
+        raise NotImplementedError
+
+    def reserve_burst(self, slot: int, start: int, n: int) -> int:
+        """Make positions [start, start+n) of `slot` writable for a
+        speculative burst; returns how many leading positions are covered
+        (0 = out of memory even for the pending token: preempt). The
+        contiguous pool reserves max_len rows up front, so every
+        in-range position is always writable."""
+        return n
+
+    def rollback_burst(self, slot: int, next_pos: int):
+        """Undo burst-only reservations after acceptance: release memory
+        that exists purely to hold positions > `next_pos` (the row's next
+        write position). No-op on the contiguous pool."""
 
     def invalidate_positions(self, positions):
-        """Speculative decoding's rollback of rejected lanes (not
-        ported)."""
-        raise NotImplementedError(_SPEC)
+        """pos -> -1 for a (B, k+1) batch of absolute positions (-1 lanes
+        drop): scrubs rejected draft lanes so the cache state equals
+        never having drafted."""
+        raise NotImplementedError
+
+    def cache_finished(self, entry):
+        """Hook fired at normal retirement (not preemption), before the
+        slot is released: the paged backend publishes generated-token
+        blocks into the radix tree here when ``cache_generated`` is on."""
 
     def retire(self, slot: int):
         """Release every resource `slot` holds."""
         raise NotImplementedError
 
+    def token_capacity(self) -> int:
+        """Total token positions the pool can ever hold (the denominator
+        of the server's load-shedding budget)."""
+        raise NotImplementedError
+
+    def tokens_free(self) -> int:
+        """Token positions not currently promised to live work (reclaimable
+        prefix-cache blocks included on the paged backend)."""
+        raise NotImplementedError
+
     def peak_cache_bytes(self) -> int:
         """High-water cache memory this backend actually needed."""
         raise NotImplementedError
+
+    def occupancy(self) -> dict:
+        """Host-side memory occupancy for the flight recorder (one dict a
+        tick: cheap, and no device read)."""
+        return {}
 
 
 class ContiguousBackend(CacheBackend):
@@ -178,7 +215,12 @@ class ContiguousBackend(CacheBackend):
     def __init__(self, cfg, num_slots: int, max_len: int,
                  dtype=torch.bfloat16, telemetry: bool = False,
                  device="cuda"):
-        from .programs import make_decode_step, make_prefill_chunk_step
+        from .programs import (
+            invalidate_positions_program,
+            make_decode_step,
+            make_prefill_chunk_step,
+            make_verify_step,
+        )
 
         self.cfg = cfg
         self.num_slots = num_slots
@@ -190,6 +232,8 @@ class ContiguousBackend(CacheBackend):
         self._prefill_chunk = make_prefill_chunk_step(cfg,
                                                       telemetry=telemetry)
         self._decode = make_decode_step(cfg, telemetry=telemetry)
+        self._verify = make_verify_step(cfg, telemetry=telemetry)
+        self._invalidate = invalidate_positions_program
 
     @property
     def num_free_slots(self) -> int:
@@ -225,15 +269,23 @@ class ContiguousBackend(CacheBackend):
             return out[0]
         return out
 
+    def verify(self, params, toks, poss):
+        out = self._verify(params, toks, poss, self.pool.cache)
+        if self.telemetry:
+            self.last_telemetry = ("verify", out[1])
+            return out[0]
+        return out
+
+    def invalidate_positions(self, positions):
+        self._invalidate(self.pool.cache, positions)
+
     def retire(self, slot: int):
         self.pool.release(slot)
 
     def token_capacity(self) -> int:
-        """Total token positions the pool can ever hold."""
         return self.num_slots * self.max_len
 
     def tokens_free(self) -> int:
-        """Token positions not promised to live work."""
         return self.pool.num_free * self.max_len
 
     def peak_cache_bytes(self) -> int:
@@ -241,6 +293,5 @@ class ContiguousBackend(CacheBackend):
                    for v in layer.values() for t in v.values())
 
     def occupancy(self) -> dict:
-        """Host-side slot occupancy, cheap to read every tick."""
         return {"slots_free": self.pool.num_free,
                 "slots_total": self.num_slots}

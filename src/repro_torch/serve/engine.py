@@ -20,10 +20,12 @@ serving modes) on the MoE einsum path, as in the reference;
 ``telemetry=True`` collects the model-interior telemetry of every call
 (``serve/telemetry.py``).
 
-Not ported yet: speculative decoding, span tracing and the flight
-recorder (asking for them raises ``NotImplementedError``), and
-publishing generated tokens into the radix tree (the JAX engine's
-``cache_generated``).
+``spec`` serves through speculative decoding (``serve/spec_decode.py``),
+``cache_generated`` publishes retired requests' generated tokens into
+the radix tree, ``trace`` records per-request span timelines and
+``flight_recorder`` keeps a ring of per-tick records
+(``serve/tracing.py``); the last two are host-side only and change no
+served token.
 """
 from __future__ import annotations
 
@@ -35,11 +37,24 @@ import torch
 
 from ..layers.common import dtype_of, resolve_device
 from ..models.lm import check_supported
+from ..roofline import serving_program_bounds
 from .block_manager import PagedBackend
 from .cache_pool import ContiguousBackend
 from .sampling import GREEDY, SamplingParams, sample_tokens_checked
 from .scheduler import Request, Scheduler
+from .spec_decode import SpecConfig, SpecDecoder
 from .telemetry import TelemetryAggregator
+from .tracing import (
+    SPAN_ADMITTED,
+    SPAN_DECODE_TICK,
+    SPAN_PREEMPTED,
+    SPAN_PREFILL_CHUNK,
+    SPAN_REQUEUED,
+    SPAN_RETIRED,
+    FlightRecorder,
+    ProgramTimer,
+    Tracer,
+)
 
 # Layer weights the reference reads in f32 whatever the compute dtype, by
 # the sub-dict that holds them: a MoE layer's routing weights (the sparse
@@ -90,11 +105,21 @@ class ServeEngine:
     ``telemetry=True`` drains each call's telemetry tree into
     ``self.telemetry`` (a ``TelemetryAggregator``: ``tick`` holds the
     current tick's flat stats per phase) and ``telemetry_snapshot()``.
+    ``cache_generated`` (paged only) also publishes retired requests'
+    generated tokens into the radix tree (multi-turn prefix reuse).
 
     ``max_queue`` bounds the admission queue (`submit` raises
     `scheduler.QueueFull`); the tick loop enforces per-request deadlines,
     `cancel(req)` frees a queued or live request within one tick, and
     rows whose logits go non-finite retire with finish_reason="error".
+
+    ``spec`` (a ``SpecConfig``) turns on speculative decoding: a
+    self-drafting n-gram drafter proposes up to ``spec.k`` tokens a row
+    and one batched (B, k+1) verify step commits an accepted prefix; the
+    stream is token for token the plain engine's on the same logits.
+    ``trace`` records span timelines on each request (``req.spans``);
+    ``flight_recorder=N`` keeps the last N tick records
+    (``self.recorder``).
     """
 
     def __init__(self, cfg, params, batch_size: int, max_len: int,
@@ -104,14 +129,11 @@ class ServeEngine:
                  cache_dtype=torch.bfloat16, backend: str = "contiguous",
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefix_cache: bool = True, use_kernel: bool = True,
-                 spec=None,
+                 cache_generated: bool = False,
+                 spec: Optional[SpecConfig] = None,
                  max_queue: Optional[int] = None, trace: bool = False,
                  flight_recorder: int = 0, telemetry: bool = False,
                  device="cuda"):
-        for name, on in (("spec", spec is not None), ("trace", trace),
-                         ("flight_recorder", flight_recorder)):
-            if on:
-                raise NotImplementedError(f"{name} is not ported yet")
         check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -121,6 +143,9 @@ class ServeEngine:
         self.pad_id = pad_id
         self.default_sampling = default_sampling
         if backend == "contiguous":
+            if cache_generated:
+                raise ValueError(
+                    "cache_generated needs the paged backend's radix tree")
             self.backend = ContiguousBackend(
                 cfg, batch_size, max_len, dtype_of(cache_dtype),
                 telemetry=telemetry, device=self.device)
@@ -129,7 +154,8 @@ class ServeEngine:
                 cfg, batch_size, max_len, dtype_of(cache_dtype),
                 block_size=block_size, num_blocks=num_blocks,
                 prefix_cache=prefix_cache, use_kernel=use_kernel,
-                telemetry=telemetry, device=self.device,
+                cache_generated=cache_generated, telemetry=telemetry,
+                device=self.device,
             )
         else:
             raise ValueError(f"unknown backend {backend!r}")
@@ -140,6 +166,8 @@ class ServeEngine:
             raise ValueError(f"prefill_chunk {chunk} exceeds backend limit "
                              f"{self.backend.max_chunk}")
         self.sched = Scheduler(chunk, max_len, eos_id, max_queue=max_queue)
+        # Sampler fused with the per-row non-finite guard.
+        self._sample = sample_tokens_checked
         # Per-slot logits of the *last* model call that touched the row —
         # valid iff the row is in DECODE state.
         self._logits = torch.zeros((batch_size, cfg.vocab_size),
@@ -155,10 +183,29 @@ class ServeEngine:
         self.cancellations = 0
         self.nonfinite_retired = 0
         self.deadline_misses = {"ttft": 0, "total": 0}
+        # Speculative decoding: SpecDecoder refuses archs and backends it
+        # cannot roll back, and owns drafting, verify and accept state.
+        self._spec = SpecDecoder(self, spec) if spec is not None else None
         # Set by a preemption while other rows are live: admission pauses
         # until one of them RETIRES, or two equal-sized rows livelock.
         self._admission_hold = False
+        # Observability: span timelines and the tick ring, host side only.
+        self.tracer = Tracer() if trace else None
+        self.recorder = (FlightRecorder(flight_recorder)
+                         if flight_recorder else None)
         self.ticks = 0
+        self._timers = {}
+        if self.recorder is not None or telemetry:
+            # Host timers around the backend's model entry points and the
+            # sampler. FaultInjector attaches after construction and
+            # wraps whatever is bound then, so injected faults stay timed
+            # and detach() restores the timed methods.
+            for name in ("prefill_chunk", "decode", "verify"):
+                timer = ProgramTimer(name, getattr(self.backend, name))
+                setattr(self.backend, name, timer)
+                self._timers[name] = timer
+            self._sample = ProgramTimer("sample", self._sample)
+            self._timers["sample"] = self._sample
 
     # -- request intake ----------------------------------------------------
 
@@ -174,6 +221,8 @@ class ServeEngine:
                 f"(prompt {len(req.prompt)} + max_new {req.max_new_tokens})"
             )
         self.sched.submit(req)
+        if self.tracer is not None:
+            self.tracer.start(req)
 
     # -- tick phases -------------------------------------------------------
 
@@ -186,6 +235,9 @@ class ServeEngine:
             slot, cached_len = res
             entry = self.sched.bind(slot, start_pos=cached_len)
             admitted += 1
+            if self.tracer is not None:
+                self.tracer.span(entry.req, SPAN_ADMITTED, slot=slot,
+                                 cached=cached_len)
             sp = entry.req.sampling
             if sp is GREEDY:
                 sp = self.default_sampling
@@ -201,10 +253,14 @@ class ServeEngine:
         entry = self.sched.next_prefill()
         if entry is None:
             return False
+        chunk_i = entry.next_chunk
         toks, poss = entry.take_chunk()
-        self._logits = self.backend.prefill_chunk(
-            self.params, self._logits, entry.slot, toks, poss
-        )
+        self._logits = self._call_model(
+            [entry], self.backend.prefill_chunk, self._logits, entry.slot,
+            toks, poss)
+        if self.tracer is not None:
+            self.tracer.span(entry.req, SPAN_PREFILL_CHUNK, i=chunk_i,
+                             of=entry.n_chunks)
         if entry.prefill_done():
             self.backend.prefill_finished(entry)
         return True
@@ -214,26 +270,64 @@ class ServeEngine:
         request back at the head of the queue for a full restart, with
         its own prefix-cache hits disabled so eviction can always reclaim
         enough blocks to finish it."""
+        if self.tracer is not None:
+            self.tracer.span(entry.req, SPAN_PREEMPTED, slot=entry.slot,
+                             discarded=len(entry.req.out))
         self.backend.retire(entry.slot)
         self.sched.requeue(entry)
+        if self.tracer is not None:
+            self.tracer.span(entry.req, SPAN_REQUEUED)
         entry.req.no_prefix_cache = True
         self.preemptions += 1
+        if self._spec is not None:
+            self._spec.drop_slot(entry.slot)
         # Hold admission until a live row retires and genuinely frees
         # memory; with no other live row the restart owns the whole pool.
         self._admission_hold = bool(self.sched.live)
 
     def _retire_entry(self, entry):
-        """Normal completion: release the slot, unblock admission."""
+        """Normal completion: let the backend publish reusable state
+        (``cache_generated``), release the slot, unblock admission."""
+        self.backend.cache_finished(entry)
         self.backend.retire(entry.slot)
+        if self._spec is not None:
+            self._spec.drop_slot(entry.slot)
         self._admission_hold = False
+        if self.tracer is not None:
+            attrs = {"reason": entry.req.finish_reason}
+            if self.telemetry is not None:
+                # the latest decode numerics the request retired under
+                flat = self.telemetry.latest.get("decode", {})
+                for k in ("logits_max_abs_logit", "logits_softmax_entropy"):
+                    if k in flat:
+                        attrs[k] = round(flat[k], 6)
+            self.tracer.span(entry.req, SPAN_RETIRED, **attrs)
+
+    def _call_model(self, entries, program, *args):
+        """One backend model call for ``entries``. If it raises (say, a
+        kernel that fails to build or launch), those rows first retire
+        with finish_reason="error" and free their memory, then the error
+        propagates: nothing falls back, and the engine stays consistent
+        for the caller, who may keep stepping it."""
+        try:
+            return program(self.params, *args)
+        except Exception:
+            for e in entries:
+                self._abort_entry(e, "error")
+            raise
 
     def _abort_entry(self, entry, reason: str):
         """Abnormal retirement (cancellation / deadline / poisoned row):
-        release everything the row holds in the same tick, without
-        publishing any of its state to the prefix cache."""
+        release everything the row holds (slot, blocks, pending
+        speculative state) in the same tick, without publishing any of
+        its state to the prefix cache."""
         self.sched.finish(entry, reason)
         self.backend.retire(entry.slot)
+        if self._spec is not None:
+            self._spec.drop_slot(entry.slot)
         self._admission_hold = False
+        if self.tracer is not None:
+            self.tracer.span(entry.req, SPAN_RETIRED, reason=reason)
 
     def cancel(self, req: Request, reason: str = "cancelled") -> bool:
         """Cancel a request wherever it is (queued or live). Returns
@@ -242,6 +336,8 @@ class ServeEngine:
             return False
         if self.sched.drop_queued(req, reason):
             self.cancellations += 1
+            if self.tracer is not None:
+                self.tracer.span(req, SPAN_RETIRED, reason=reason)
             return True
         entry = self.sched.entry_for(req)
         if entry is None:
@@ -271,6 +367,8 @@ class ServeEngine:
             if kind is not None:
                 self.sched.drop_queued(req, "deadline")
                 self.deadline_misses[kind] += 1
+                if self.tracer is not None:
+                    self.tracer.span(req, SPAN_RETIRED, reason="deadline")
         for entry in list(self.sched.live.values()):
             kind = self._deadline_kind(entry.req, now)
             if kind is not None:
@@ -280,11 +378,14 @@ class ServeEngine:
     def _do_decode(self) -> int:
         """Sample every DECODE row from the logits buffer, retire finished
         rows, then one batched decode step for the survivors. Returns the
-        number of tokens emitted."""
+        number of tokens emitted. With speculation on, the phase is the
+        SpecDecoder's (draft, one (B, k+1) verify, accept and roll back)."""
+        if self._spec is not None:
+            return self._spec.decode_tick()
         entries = self.sched.decode_entries()
         if not entries:
             return 0
-        toks, ok = sample_tokens_checked(
+        toks, ok = self._sample(
             self._logits, self._temp, self._top_k, self._top_p,
             self._seed, self._step,
         )
@@ -303,7 +404,10 @@ class ServeEngine:
             tok = int(toks[e.slot])
             self._step[e.slot] += 1
             emitted += 1
-            if self.sched.record_token(e, tok):
+            finished = self.sched.record_token(e, tok)
+            if self.tracer is not None:
+                self.tracer.span(e.req, SPAN_DECODE_TICK, token=tok)
+            if finished:
                 self._retire_entry(e)
             elif not self.backend.ensure_decode_block(e.slot, e.pos):
                 self._preempt(e)
@@ -312,8 +416,8 @@ class ServeEngine:
                 in_pos[e.slot] = e.pos
                 survivors.append(e)
         if survivors:
-            logits = self.backend.decode(
-                self.params,
+            logits = self._call_model(
+                survivors, self.backend.decode,
                 torch.as_tensor(in_toks, device=self.device),
                 torch.as_tensor(in_pos, device=self.device),
             )
@@ -325,18 +429,42 @@ class ServeEngine:
 
     def step(self) -> int:
         """One engine tick: expire deadlines, admit, (maybe) one prefill
-        chunk, one batched sample+decode pass. Returns tokens emitted."""
+        chunk, one batched sample+decode pass. Returns tokens emitted.
+        A model call that raises retires its rows (``_call_model``) and
+        the error propagates out of the tick. With a recorder the tick
+        appends one flight-recorder record."""
+        t0 = time.perf_counter() if self.recorder is not None else 0.0
         self._expire_deadlines()
         if self.telemetry is not None:
             self.telemetry.begin_tick()
-        self._admit()
-        self._do_prefill_chunk()
+        admitted = self._admit()
+        prefilled = self._do_prefill_chunk()
         if self.telemetry is not None:
             self.telemetry.drain(self.backend)
         emitted = self._do_decode()
         if self.telemetry is not None:
             self.telemetry.drain(self.backend)
         self.ticks += 1
+        if self.recorder is not None:
+            self.recorder.record({
+                "tick": self.ticks,
+                "t": t0,
+                "wall_s": round(time.perf_counter() - t0, 6),
+                "queued": len(self.sched.queue),
+                "live": len(self.sched.live),
+                "decode_rows": len(self.sched.decode_entries()),
+                "admitted": admitted,
+                "prefilled": int(prefilled),
+                "emitted": emitted,
+                "kernel_fallbacks": 0,  # see robustness_stats
+                "jit_cache_sizes": self.jit_cache_sizes(),
+                "programs": {name: t.take_tick()
+                             for name, t in self._timers.items()},
+                **self.backend.occupancy(),
+                **({"telemetry": dict(self.telemetry.tick)}
+                   if self.telemetry is not None and self.telemetry.tick
+                   else {}),
+            })
         return emitted
 
     def run(self) -> int:
@@ -345,6 +473,76 @@ class ServeEngine:
         while self.sched.pending():
             self.step()
         return self.decode_steps
+
+    # -- introspection -----------------------------------------------------
+
+    def jit_cache_sizes(self) -> tuple:
+        """The reference's compiled-signature counts of its serving
+        programs. The port runs its programs eagerly and compiles none, so
+        this is the empty tuple (and so is the tick record's
+        ``jit_cache_sizes``, kept so that both packages' records have one
+        key set)."""
+        return ()
+
+    def config_info(self) -> dict:
+        """Frozen engine configuration as flat str/int values: the
+        exporter renders it as the ``engine_info{...} 1`` gauge, so a
+        scrape says what was serving."""
+        paged = isinstance(self.backend, PagedBackend)
+        info = {
+            "arch": str(self.cfg.name),
+            "backend": "paged" if paged else "contiguous",
+            "max_batch": self.batch,
+            "max_len": self.max_len,
+            "prefill_chunk": self.sched.prefill_chunk,
+            "spec": "on" if self._spec is not None else "off",
+            "trace": "on" if self.tracer is not None else "off",
+        }
+        if paged:
+            be = self.backend
+            info.update(
+                block_size=be.block_size,
+                num_blocks=be.num_blocks,
+                use_kernel="on" if be.use_kernel else "off",
+                prefix_cache="on" if be.prefix is not None else "off",
+                cache_generated="on" if be.cache_generated else "off",
+            )
+        if self._spec is not None:
+            info["spec_k"] = self._spec.k
+        return info
+
+    def robustness_stats(self) -> dict:
+        """Degradation and termination counters (``serve/metrics.py``
+        merges them into the server's metric snapshot).
+        ``kernel_fallbacks`` is always 0: the port has no kernel-to-gather
+        fallback (a failing kernel raises), and the key is kept so that
+        both packages' counters and tick records have one key set."""
+        out = {
+            "preemptions": self.preemptions,
+            "cancellations": self.cancellations,
+            "nonfinite_retired": self.nonfinite_retired,
+            "deadline_misses_ttft": self.deadline_misses["ttft"],
+            "deadline_misses_total": self.deadline_misses["total"],
+            "kernel_fallbacks": 0,
+        }
+        if self._spec is not None:
+            out["spec_rows_disabled"] = self._spec.rows_disabled
+            out["spec_drafter_errors"] = self._spec.drafter_errors
+        return out
+
+    def spec_stats(self) -> Optional[dict]:
+        """Speculation counters (None when speculation is off)."""
+        if self._spec is None:
+            return None
+        s = self._spec
+        return {
+            "verify_calls": s.verify_calls,
+            "drafted": s.drafted,
+            "accepted": s.accepted,
+            "tokens_emitted": s.tokens_emitted,
+            "acceptance_rate": s.acceptance_rate,
+            "calls_per_token": s.calls_per_token(),
+        }
 
     def peak_cache_bytes(self) -> int:
         return self.backend.peak_cache_bytes()
@@ -357,3 +555,24 @@ class ServeEngine:
             return {}
         return {phase: dict(flat)
                 for phase, flat in self.telemetry.latest.items()}
+
+    def program_efficiency(self) -> dict:
+        """Each program's least time on the H100
+        (``roofline.serving_program_bounds``) over its ``ProgramTimer``
+        mean HOST wall time, the ``program_efficiency`` gauge. On CUDA the
+        timer reads launch time plus any wait inside the call, not device
+        time, so this is a host-time ratio, not a device roofline share.
+        Empty until a program has run under a timer (telemetry or a
+        flight recorder)."""
+        if not self._timers:
+            return {}
+        lanes = (self._spec.k + 1) if self._spec is not None else 1
+        bounds = serving_program_bounds(
+            self.cfg, self.batch, self.sched.prefill_chunk, lanes)
+        out = {}
+        for name, timer in self._timers.items():
+            if name not in bounds or timer.calls == 0:
+                continue
+            measured = timer.total_s / timer.calls
+            out[name] = bounds[name] / measured if measured > 0 else 0.0
+        return out

@@ -6,13 +6,19 @@ The JAX package jits each program once with one fixed signature and
 donates the cache. Here they are plain eager functions that update the
 per-layer caches in place; CUDA graphs of them are a later change. Every
 program runs ``lm_apply`` in a serving mode. The speculative-decoding
-programs (verify, rollback) are not ported.
+programs are a (B, k+1) decode continuation with logits at every lane
+(verify) and the scrub of rejected lanes (rollback), on both layouts.
 """
 from __future__ import annotations
 
 import torch
 
-from ..layers.attention import copy_kv_blocks, reset_block_pos
+from ..layers.attention import (
+    copy_kv_blocks,
+    invalidate_kv_positions,
+    invalidate_paged_positions,
+    reset_block_pos,
+)
 from ..layers.ssm import reset_ssm_rows
 from ..models import lm_apply
 from .cache_pool import pool_row
@@ -71,6 +77,33 @@ def make_prefill_chunk_step(cfg, telemetry: bool = False):
     return prefill_chunk
 
 
+def make_verify_step(cfg, telemetry: bool = False):
+    """Speculative-decoding verify over the contiguous pool: (params,
+    tokens(B,S), pos(B,S), cache) -> logits(B,S,V), or (logits, telem).
+    A multi-token decode continuation (this call's K/V is written first,
+    each lane attends everything causally at or before it) with logits
+    at EVERY lane: lane j's logits score the token after lane j. Lanes
+    with pos < 0 (inactive rows, unused draft lanes) write nothing."""
+
+    def verify(params, tokens, pos, cache):
+        out = lm_apply(params, cfg, tokens, positions=pos, cache=cache,
+                       mode="decode", telemetry=telemetry)
+        return (out[0], out[3]) if telemetry else out[0]
+
+    return verify
+
+
+def invalidate_positions_program(cache, positions):
+    """Speculative rollback on the contiguous pool: pos -> -1 for a (B, W)
+    batch of absolute positions in every attention layer (lanes below 0
+    drop), leaving the cache equal to never having written the rejected
+    draft lanes."""
+    for layer in cache:
+        if "attn" in layer:
+            invalidate_kv_positions(layer["attn"], positions)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # paged (block-pool) programs
 # ---------------------------------------------------------------------------
@@ -126,6 +159,36 @@ def make_decode_step_paged(cfg, use_kernel: bool = False,
         return (out[0], out[3]) if telemetry else out[0]
 
     return decode
+
+
+def make_verify_step_paged(cfg, use_kernel: bool = False,
+                           telemetry: bool = False):
+    """Paged speculative verify: (params, tokens(B,S), pos(B,S),
+    tables(B,nb), cache) -> logits(B,S,V), or (logits, telem): the
+    contract of `make_verify_step` through the block tables.
+    ``use_kernel`` is taken for signature parity with the decode program,
+    but S > 1 always gathers, as in the reference: the paged
+    decode-attention kernel is single-query."""
+
+    def verify(params, tokens, pos, tables, cache):
+        out = lm_apply(
+            params, cfg, tokens, positions=pos, cache=cache,
+            mode="decode", block_tables=tables, paged_kernel=use_kernel,
+            telemetry=telemetry,
+        )
+        return (out[0], out[3]) if telemetry else out[0]
+
+    return verify
+
+
+def invalidate_positions_paged_program(cache, positions, tables):
+    """Speculative rollback on the paged pool: pos -> -1 through the block
+    tables for a (B, W) batch of absolute positions in every attention
+    layer."""
+    for layer in cache:
+        if "attn" in layer:
+            invalidate_paged_positions(layer["attn"], positions, tables)
+    return cache
 
 
 def clear_blocks_program(cache, blocks):

@@ -138,3 +138,49 @@ def sample_tokens_checked(logits, temperature, top_k, top_p, seed, step):
     non-finite value (the engine retires such rows)."""
     return (sample_tokens(logits, temperature, top_k, top_p, seed, step),
             finite_rows(logits))
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: vectorized accept
+# ---------------------------------------------------------------------------
+
+
+def spec_accept_tokens(logits, drafts, n_draft, temperature, top_k, top_p,
+                       seed, step):
+    """Speculative-decoding accept step against a DETERMINISTIC drafter,
+    for the whole batch (counterpart of the JAX package's
+    ``spec_accept_tokens``).
+
+    logits: (B, K+1, V) verify logits (``logits[:, j]`` is the
+    next-token distribution after verify lane j; lane 0 is the pending
+    token, lanes 1..K the drafts). drafts: (B, K) and n_draft: (B,) host
+    or device integers; the sampling suite as `sample_tokens` takes it.
+
+    Lane j's chain token is what the non-speculative engine emits at
+    that position: the argmax for greedy rows, and for sampled rows the
+    Gumbel-max draw `sample_tokens` makes at step ``step + j`` (the same
+    filtered row and the same generator seed ``_row_seed(seed, step +
+    j)``), so the chain is bitwise the plain engine's stream. A draft is
+    accepted iff it equals its chain token, and the boundary lane emits
+    the chain token itself.
+
+    Returns ``(n_acc, tokens)``: row b accepts its first ``n_acc[b]``
+    drafts and emits ``tokens[b, :n_acc[b]+1]``."""
+    b, k1, v = logits.shape
+    k = k1 - 1
+    dev = logits.device
+
+    def lanes(a):
+        return np.repeat(np.asarray(a), k1)
+
+    chain = sample_tokens(
+        logits.reshape(b * k1, v), lanes(temperature), lanes(top_k),
+        lanes(top_p), lanes(seed),
+        (np.asarray(step)[:, None] + np.arange(k1)).reshape(-1),
+    ).reshape(b, k1)
+    drafts = torch.as_tensor(drafts, device=dev).long()
+    n_draft = torch.as_tensor(n_draft, device=dev)
+    ok = (drafts == chain[:, :k]) & (
+        torch.arange(k, device=dev)[None] < n_draft[:, None])
+    n_acc = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+    return n_acc, chain

@@ -15,9 +15,9 @@ parity:
   local layers equal the JAX contiguous engine's (where, in both
   packages, the paged backend parts from the ring: see the test);
 - the three contiguous programs against a no-cache forward; the
-  backend's accounting, the speculative-decoding hooks that raise,
-  an unknown backend's ``ValueError``, and ``batch_variance_probe``'s
-  default backend;
+  backend's accounting, the speculative-decoding hooks (verify and the
+  scrub of rejected lanes), an unknown backend's ``ValueError``, and
+  ``batch_variance_probe``'s default backend;
 - on the card (``cuda`` marker): the contiguous engine serves with K7
   launched 0 times.
 
@@ -246,9 +246,12 @@ def test_wrapping_prompts_match_jax_contiguous(jx, name):
 
 def test_backend_accounting_and_unported_hooks():
     """Memory is slots x max_len whatever the traffic; ``max_chunk`` is the
-    smallest ring; the engine's default prefill chunk fits it; verify and
-    invalidate_positions (speculative decoding) raise; an unknown backend
-    is a ``ValueError``, as in the reference."""
+    smallest ring; the engine's default prefill chunk fits it. The
+    speculative-decoding hooks: burst reservation covers every position
+    and rollback is a no-op (rows are reserved up front); ``verify``
+    returns logits at every lane, equal to the no-cache forward's, and
+    ``invalidate_positions`` scrubs exactly the given lanes of one row.
+    An unknown backend is a ``ValueError``, as in the reference."""
     cfg, params = _setup("gemma3-27b")  # window 16: every ring is 16 long
     eng = ServeEngine(cfg, params, batch_size=2, max_len=64, device="cpu",
                       cache_dtype=torch.float32)
@@ -266,10 +269,26 @@ def test_backend_accounting_and_unported_hooks():
     assert be.tokens_free() == 64 and be.occupancy()["slots_free"] == 1
     eng.run()
     assert be.tokens_free() == 128
-    for call in (lambda: be.verify(params, None, None),
-                 lambda: be.invalidate_positions(None)):
-        with pytest.raises(NotImplementedError, match="speculative"):
-            call()
+    assert be.reserve_burst(0, 5, 4) == 4
+    assert be.rollback_burst(0, 6) is None
+    toks = torch.tensor([[3, 1, 4, 1, 5], [9, 2, 6, 5, 3]])
+    pos = torch.tensor([[0, 1, 2, 3, 4], [0, 1, 2, -1, -1]],
+                       dtype=torch.int32)
+    be.try_admit(None)
+    be.try_admit(None)
+    logits = be.verify(params, toks, pos)
+    assert logits.shape == (2, 5, cfg.vocab_size)
+    want = lm_apply(params, cfg, toks)[0]
+    np.testing.assert_allclose(logits[0].numpy(), want[0].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(logits[1, :3].numpy(), want[1, :3].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    be.invalidate_positions(torch.tensor([[3, 4, -1], [-1, -1, -1]],
+                                         dtype=torch.int32))
+    for layer in be.pool.cache:
+        ring = layer["attn"]["pos"]
+        assert ring[0, :5].tolist() == [0, 1, 2, -1, -1]
+        assert ring[1, :3].tolist() == [0, 1, 2] and (ring[1, 3:] == -1).all()
     with pytest.raises(ValueError, match="unknown backend"):
         ServeEngine(cfg, params, batch_size=2, max_len=64, device="cpu",
                     backend="ring")

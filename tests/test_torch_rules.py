@@ -40,7 +40,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models, repro_torch.core, repro_torch.train, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
             "repro_torch.core.inspection, repro_torch.serve.telemetry, "
-            "repro_torch.core.sparse_moe, repro_torch.core.ablations; "
+            "repro_torch.core.sparse_moe, repro_torch.core.ablations, "
+            "repro_torch.serve.server, repro_torch.serve.faults, "
+            "repro_torch.serve.spec_decode, repro_torch.serve.exporter; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -116,23 +118,51 @@ def test_cuda_request_without_a_gpu_raises():
 
 
 def test_unported_engine_options_raise():
-    """Speculative decoding, span tracing and the flight recorder are not
-    ported: each raises on both backends. What this slice ported builds
-    what the reference builds: ``lm_init`` and ``ServeEngine`` take
+    """The serving options the last slices ported build what the
+    reference builds: ``spec``, ``trace`` and ``flight_recorder`` on both
+    backends and ``cache_generated`` on the paged one (the contiguous
+    backend refuses it, as in the reference), and ``spec`` refuses an SSM
+    arch and a wrapping contiguous ring with the reference's
+    ``ValueError``. ``lm_init`` and ``ServeEngine`` take
     seamless-m4t-large-v2 (its decoder stack with the audio frontend
     prepended), and MLA runs on the contiguous ring cache."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import lm_apply, lm_init
-    from repro_torch.serve import ContiguousBackend, ServeEngine
+    from repro_torch.serve import (
+        ContiguousBackend,
+        FlightRecorder,
+        PagedBackend,
+        ServeEngine,
+        SpecConfig,
+        Tracer,
+    )
 
     cfg = reduced(get_config("qwen2-0.5b"))
     params = lm_init(torch.Generator().manual_seed(0), cfg)
-    for backend in ("contiguous", "paged"):
-        for kw in ({"spec": object()}, {"trace": True},
-                   {"flight_recorder": 4}):
-            with pytest.raises(NotImplementedError):
-                ServeEngine(cfg, params, batch_size=2, max_len=32,
-                            device="cpu", backend=backend, **kw)
+    geo = dict(batch_size=2, max_len=32, device="cpu")
+    for backend, cls in (("contiguous", ContiguousBackend),
+                         ("paged", PagedBackend)):
+        eng = ServeEngine(cfg, params, backend=backend, spec=SpecConfig(k=2),
+                          trace=True, flight_recorder=4, **geo)
+        assert isinstance(eng.backend, cls)
+        assert eng.spec_stats()["verify_calls"] == 0
+        assert isinstance(eng.tracer, Tracer)
+        assert isinstance(eng.recorder, FlightRecorder)
+        assert eng.recorder.capacity == 4
+        assert eng.config_info()["spec"] == "on"
+    eng = ServeEngine(cfg, params, backend="paged", cache_generated=True,
+                      **geo)
+    assert eng.backend.cache_generated
+    with pytest.raises(ValueError, match="paged backend"):
+        ServeEngine(cfg, params, cache_generated=True, **geo)
+    mamba = reduced(get_config("mamba2-370m"))
+    with pytest.raises(ValueError, match="SSM state advanced by a rejected"):
+        ServeEngine(mamba, lm_init(torch.Generator().manual_seed(0), mamba),
+                    backend="paged", spec=SpecConfig(k=2), **geo)
+    gemma = reduced(get_config("gemma3-27b"))  # window 16 < max_len 32
+    with pytest.raises(ValueError, match="non-wrapping rings"):
+        ServeEngine(gemma, lm_init(torch.Generator().manual_seed(0), gemma),
+                    spec=SpecConfig(k=2), **geo)
     # seamless-m4t-large-v2: lm_init draws the embedding, the audio
     # frontend's projection and the decoder stack, and the (default,
     # contiguous) engine serves it
