@@ -272,6 +272,28 @@ prints no result line):
    its first prompt; a row forked with ``fork_slot`` shares its blocks
    at refcount 2 until its first write copies one, and decodes its
    source's greedy tokens.
+23. distributed: on a world-1 NCCL ``DeviceMesh`` (data=1, model=1) from
+   ``launch.mesh.make_host_mesh`` (no CPU fallback: a group that fails
+   to start raises), full-width, full-depth granite-moe-1b-a400m+soft
+   trained 3 steps on batch 8 x 2048 (bf16 compute, telemetry off) from
+   a ZeRO-1 state (``init_train_state(zero1=True)``: bf16 compute
+   params, f32 master and moments) placed by ``state_shardings`` through
+   the sharded step (``jit_train_step``), beside 3 steps of the plain f32
+   state from the same seed: step p50, peak memory and state bytes of
+   each, every loss and their differences; each ZeRO-1 loss bitwise equal
+   to ``loss_fn`` at the bf16 cast of the master it started from, the
+   compute params bitwise the master's cast after every step, and K1,
+   K2, K4 and K5 launched 48, 48, 24 and 24 times a step (these go into
+   the kernels line). Then ``pod_allreduce_compressed`` over the model's
+   gradient tree on a (pod=1, data=1, model=1) mesh: within scale/2 of
+   the input element by element (plus f32 rounding), the new residual
+   bitwise corrected - out, ``pod_allreduce_mean`` its input bitwise;
+   time and payload bytes. The elastic restore: the ZeRO-1 state saved
+   after step 3 restored onto a 1-D data mesh and with no mesh, bitwise;
+   save and restore GB/s. Last, ``make_a2a_moe`` at granite's expert
+   width (E 32, top-8, d 1024, ff 512, SwiGLU; one layer of the
+   as-configured model's router and experts, 16384 f32 tokens) against
+   the dense dropless top-k within 1e-3 of max|ref|, and its time.
 
 Each phase logs its wall time. The lines before the last carry the
 numbers: the card line as
@@ -5353,6 +5375,301 @@ def phase_serving_stack(torch, card):
     return {"paged_decode_attend": k7}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: distributed training on a world-1 NCCL mesh
+# ---------------------------------------------------------------------------
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def phase_distributed(torch, card):
+    """ZeRO-1 training of granite-moe-1b-a400m+soft at full width and
+    depth through the sharded step on a (data=1, model=1) NCCL mesh
+    beside the plain f32 step, the all-to-all MoE layer at granite's
+    expert width, the int8 compressed pod reduce over the model's
+    gradients and the elastic restore of the ZeRO-1 state. Returns the
+    K1, K2, K4 and K5 launches of the ZeRO-1 steps."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core import moe_init, resolve_moe_cfg
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import (
+        distribute_tree,
+        tree_shardings,
+        use_mesh,
+    )
+    from repro_torch.distributed.a2a_routing import make_a2a_moe
+    from repro_torch.kernels.soft_moe_kernels import (
+        combine_apply,
+        combine_bwd,
+        combine_online,
+        dispatch_bwd,
+        routing_fwd,
+        routing_health,
+    )
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models import lm_init, lm_loss
+    from repro_torch.optim import (
+        OptimizerConfig,
+        ef_state_init,
+        pod_allreduce_compressed,
+        pod_allreduce_mean,
+        tree_leaves,
+        tree_map,
+    )
+    from repro_torch.train import (
+        init_train_state,
+        jit_train_step,
+        make_train_step,
+        state_shardings,
+    )
+    from repro_torch.train.step import _grads_of
+
+    kernels = (routing_fwd, combine_apply, combine_online, dispatch_bwd,
+               combine_bwd, routing_health)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("granite-moe-1b-a400m+soft")
+    n_moe = len(cfg.moe_layer_indices())
+    batch, seq, n_steps = 8, 2048, 3
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                       batch_size=batch, seed=0, device="cuda")
+    ocfg = OptimizerConfig()  # phase 10's
+
+    def loss_fn(p, b):
+        return lm_loss(p, cfg, b, use_kernel=True)
+
+    def init(g):
+        return lm_init(g, cfg)
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(0)
+
+    mesh = make_host_mesh()  # NCCL, (data=1, model=1); raises if it fails
+    log(f"[dist] {card}: process group {dist.get_backend()} world "
+        f"{dist.get_world_size()}, mesh {mesh.mesh_dim_names} "
+        f"{tuple(mesh.shape)}; {cfg.name}, batch {batch} x {seq}, "
+        f"telemetry off, {n_steps} steps each")
+
+    def run(step, state):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            state, m = step(state, data.batch(i))
+            losses.append(float(m["total_loss"]))
+            times.append(time.perf_counter() - t0)
+        return state, losses, times, torch.cuda.max_memory_allocated()
+
+    # the plain f32 state and step, from the same seed
+    state = init_train_state(gen(), init)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    plain_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    state, plain_losses, plain_times, plain_peak = run(
+        make_train_step(loss_fn, ocfg), state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ZeRO-1: bf16 compute params beside the f32 master, placed by
+    # state_shardings on the mesh, through the step under the mesh
+    state = init_train_state(gen(), init, zero1=True)
+    with use_mesh(mesh):
+        sh = state_shardings(mesh, state)
+    state = distribute_tree(mesh, state, sh)
+    zero_bytes = sum(t.to_local().numel() * t.element_size()
+                     for t in tree_leaves(state))
+    step = jit_train_step(make_train_step(loss_fn, ocfg), mesh, sh)
+    starts, cast_ok = [], True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    losses, times = [], []
+    for i in range(n_steps):
+        # the compute params this step starts from: the master's cast
+        starts.append(tree_map(lambda m: _whole(m).to(torch.bfloat16),
+                               state["master"]))
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch(i))
+        losses.append(float(m["total_loss"]))
+        times.append(time.perf_counter() - t0)
+        cast_ok &= all(torch.equal(_whole(p), _whole(mm).to(p.dtype))
+                       for p, mm in zip(tree_leaves(state["params"]),
+                                        tree_leaves(state["master"])))
+    launches = tuple(k.launches for k in kernels)
+    zero_peak = torch.cuda.max_memory_allocated()
+    want = tuple(n_steps * c for c in (2 * n_moe, 2 * n_moe, 0, n_moe,
+                                       n_moe, 0))
+    # each loss against loss_fn at the bf16 cast of the master it started
+    # from, in the step's autograd mode
+    checks = []
+    for i, p in enumerate(starts):
+        wrt = tree_map(lambda t: t.detach().requires_grad_(
+            t.is_floating_point()), p)
+        with torch.enable_grad():
+            checks.append(float(loss_fn(wrt, data.batch(i))[0].detach()))
+        del wrt
+    del starts
+    p50, plain_p50 = (statistics.median(t) for t in (times, plain_times))
+    log(f"[dist] {card}: ZeRO-1 state {zero_bytes} bytes = "
+        f"{zero_bytes / 1e9:.2f} GB ({zero_bytes / n_params:.2f} B/param) vs "
+        f"plain {plain_bytes} = {plain_bytes / 1e9:.2f} GB "
+        f"({plain_bytes / n_params:.2f} B/param), {n_params} params; step "
+        f"p50 {p50 * 1e3:.2f} ms vs {plain_p50 * 1e3:.2f} ms plain "
+        f"(ZeRO-1 / plain {p50 / plain_p50:.4f}; ZeRO-1 steps "
+        + " ".join(f"{t * 1e3:.1f}" for t in times) + ", plain "
+        + " ".join(f"{t * 1e3:.1f}" for t in plain_times) + " ms); peak "
+        f"{zero_peak / 2**30:.3f} GiB vs {plain_peak / 2**30:.3f} GiB")
+    log(f"[dist] losses ZeRO-1 " + " ".join(f"{v:.6f}" for v in losses)
+        + " | plain " + " ".join(f"{v:.6f}" for v in plain_losses)
+        + " | |diff| " + " ".join(f"{abs(a - b):.3e}"
+                                  for a, b in zip(losses, plain_losses))
+        + f"; loss_fn at the master's bf16 cast "
+        + " ".join(f"{v:.6f}" for v in checks)
+        + f" (bitwise equal: {checks == losses}); compute params == master "
+        f"cast after every step: {cast_ok}; launches K1-K6 {launches} "
+        f"(= {n_steps} x remat's 2 forwards: {want})")
+    if checks != losses or not cast_ok:
+        raise AssertionError("ZeRO-1 loss or compute params differ from "
+                             "the master's bf16 cast")
+    if launches != want:
+        raise AssertionError(f"ZeRO-1 launches {launches} != {want}")
+    if not all(math.isfinite(v) for v in losses + plain_losses):
+        raise AssertionError("non-finite loss")
+
+    # the compressed pod reduce over the model's gradient tree on a
+    # (pod=1, data=1, model=1) mesh
+    pmesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    compute = tree_map(_whole, state["params"])
+    grads = _grads_of(loss_fn, compute, data.batch(n_steps))[2]
+    del compute
+    with use_mesh(pmesh):
+        specs = tree_shardings(pmesh, grads)
+    err = ef_state_init(grads)
+    numel = sum(g.numel() for g in tree_leaves(grads))
+    res = {}
+    for name in ("compressed", "mean", "compressed", "mean"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "compressed":
+            out, new_err = pod_allreduce_compressed(grads, err, pmesh, specs)
+        else:
+            mean = pod_allreduce_mean(grads, pmesh, specs)
+        torch.cuda.synchronize()
+        res.setdefault(name, []).append(time.perf_counter() - t0)
+    worst, err_ok, mean_ok = 0.0, True, True
+    for g, e, o, ne, mn in zip(*(tree_leaves(t) for t in (
+            grads, err, out, new_err, mean))):
+        scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+        worst = max(worst, float((o - g).abs().max() / scale))
+        err_ok &= torch.equal(ne, (g.float() + e) - o.float())
+        mean_ok &= torch.equal(mn, g)
+    log(f"[dist] {card}: pod reduce of {len(tree_leaves(grads))} gradient "
+        f"leaves, {numel} elements: compressed "
+        f"{min(res['compressed']) * 1e3:.2f} ms, exact mean "
+        f"{min(res['mean']) * 1e3:.2f} ms (best of 2); payload int8 {numel} "
+        f"bytes, summed as int32 {4 * numel} bytes (f32 mean {4 * numel}); "
+        f"max |out - g| / scale {worst:.6f} (bound 0.5 + 2^-15 of f32 "
+        f"rounding); new_err == corrected - out bitwise: {err_ok}; mean "
+        f"== input bitwise: {mean_ok}")
+    if worst > 0.5 + 2**-15 or not err_ok or not mean_ok:
+        raise AssertionError("compressed pod reduce out of bounds")
+    del grads, err, out, new_err, mean
+
+    # the elastic restore of the ZeRO-1 state after step 3: onto a 1-D
+    # data mesh (axis 0 over data) and with no mesh, bitwise
+    ckpt_dir = ROOT / "build" / "chip_smoke_dist_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt_dir), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(n_steps, state)
+    save_s = time.perf_counter() - t0
+    dmesh = make_mesh((1,), ("data",))
+    data_sh = tree_map(lambda t: (Shard(0),) if t.ndim else (Replicate(),),
+                       state)
+    loads = {}
+    for label in ("1-D data mesh", "no mesh"):
+        t0 = time.perf_counter()
+        if label == "no mesh":
+            got = mgr.restore(n_steps, state, device="cuda")
+        else:
+            with use_mesh(dmesh):
+                got = mgr.restore(n_steps, state, shardings=data_sh)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        same = all(torch.equal(_whole(a), _whole(b)) and a.dtype == b.dtype
+                   for a, b in zip(tree_leaves(got), tree_leaves(state)))
+        loads[label] = (dt, same)
+        del got
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"[dist] {card}: checkpoint of the ZeRO-1 state {zero_bytes / 1e9:.2f} "
+        f"GB: save {save_s:.2f} s = {zero_bytes / 1e9 / save_s:.3f} GB/s; "
+        + "; ".join(f"restore onto {k} {dt:.2f} s = "
+                    f"{zero_bytes / 1e9 / dt:.3f} GB/s, bitwise {same}"
+                    for k, (dt, same) in loads.items()))
+    if not all(same for _, same in loads.values()):
+        raise AssertionError("elastic restore differs from the saved state")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the all-to-all MoE layer at granite's expert width: one layer of the
+    # as-configured model's router and experts, 16384 f32 tokens, on a
+    # model=1 mesh (capacity factor 1.0: cap = tokens x top-k, dropless),
+    # against the dense dropless top-k on the same inputs
+    sparse = get_config("granite-moe-1b-a400m")
+    mcfg = resolve_moe_cfg(sparse.moe, sparse.d_ff)
+    layer = moe_init(torch.Generator(device="cuda").manual_seed(1),
+                     sparse.d_model, mcfg, sparse.mlp_style)
+    ex = layer["experts"]
+    e_n, k_n, d = mcfg.num_experts, mcfg.top_k, sparse.d_model
+    x = torch.randn(16384, d, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    amesh = make_mesh((1,), ("model",))
+    moe = make_a2a_moe(amesh, e_n, k_n, d, capacity_factor=1.0)
+    a2a_times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = moe(x, layer["router"], ex["w_gate"], ex["w_up"], ex["w_down"])
+        torch.cuda.synchronize()
+        a2a_times.append(time.perf_counter() - t0)
+    probs = torch.softmax(x @ layer["router"].float(), -1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = order.values[:, :k_n], order.indices[:, :k_n]
+    gate_n = gate / gate.sum(-1, keepdim=True)
+    ref = torch.zeros_like(x)
+    for e in range(e_n):
+        rows, kk = (idx == e).nonzero(as_tuple=True)
+        xe = x[rows]
+        h = torch.nn.functional.silu(xe @ ex["w_gate"][e]) * (xe @ ex["w_up"][e])
+        ref.index_add_(0, rows, (h @ ex["w_down"][e]) * gate_n[rows, kk, None])
+    a2a_err = float((y - ref).abs().max() / ref.abs().max())
+    log(f"[dist] {card}: all-to-all MoE layer ({e_n} experts, top-{k_n}, d "
+        f"{d}, expert ff {mcfg.expert_d_ff}, SwiGLU; 16384 f32 tokens, cap "
+        f"{16384 * k_n}): {a2a_times[-1] * 1e3:.2f} ms (first call "
+        f"{a2a_times[0] * 1e3:.2f}); vs the dense dropless top-k max|diff| / "
+        f"max|ref| {a2a_err:.3e} (tol 1e-3)")
+    if not a2a_err <= 1e-3:
+        raise AssertionError("all-to-all MoE layer disagrees")
+    del layer, ex, x, y, ref
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"routing_fwd": launches[0], "combine_apply": launches[1],
+            "dispatch_bwd": launches[3], "combine_bwd": launches[4]}
+
+
 def _get(tree, path):
     for k in path:
         tree = tree[k]
@@ -5399,6 +5716,8 @@ def main():
         timed(phase_seamless_train, torch, card)
         launches["paged_decode_attend"] += timed(
             phase_serving_stack, torch, card)["paged_decode_attend"]
+        for name, n in timed(phase_distributed, torch, card).items():
+            launches[name] += n
         log(f"[phase] all phases: {time.perf_counter() - t0:.1f} s wall")
     except Exception as e:  # noqa: BLE001 — report which phase failed
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr,

@@ -12,6 +12,11 @@ counterpart of ``repro/checkpoint/manager.py``.
     thread, overlapping the next steps; a blocking ``save`` streams leaf
     by leaf, so host memory holds one leaf at a time.
   * keep-N garbage collection.
+  * distributed: a DTensor leaf is gathered whole (``full_tensor``, a
+    collective, so every rank calls ``save``) and only rank 0 writes;
+    ``save`` and ``wait`` end in a barrier when there are several ranks.
+    ``restore(..., shardings=)`` places each leaf onto its placements on
+    the current mesh — the elastic restore onto any mesh shape.
 
 numpy has no bfloat16 without ``ml_dtypes``, which the port does not
 need: a bf16 leaf is stored as its uint16 bits, with ``bfloat16`` in the
@@ -28,6 +33,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from ..distributed.api import current_mesh
 
 
 def _flatten(tree, prefix=""):
@@ -53,6 +62,26 @@ def _unflatten_like(tree, leaves, prefix=""):
             _unflatten_like(v, leaves, f"{prefix}/{i}" if prefix else str(i))
             for i, v in enumerate(tree))
     return leaves[prefix]
+
+
+def _at(tree, key):
+    """The entry of ``tree`` at a flattened path ``a/b/0/c``."""
+    for k in key.split("/"):
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """The whole array of a leaf: a DTensor is gathered (collective)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _distributed() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _is_writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _to_numpy(t: torch.Tensor):
@@ -86,11 +115,22 @@ class CheckpointManager:
         items = _flatten(tree)
         if blocking:
             self.wait()
-            self._write(step, items, copy=False)
+            if _is_writer():
+                self._write(step, items, copy=False)
+            else:  # take part in the gathers rank 0 makes
+                for t in items.values():
+                    if isinstance(t, DTensor):
+                        t.full_tensor()
+            if _distributed():
+                dist.barrier()
             return
         # snapshot to host memory now: the caller updates the tree in place
-        host = {k: v.detach().to("cpu", copy=True) for k, v in items.items()}
+        host = {k: _whole(v).detach().to("cpu", copy=True)
+                for k, v in items.items()
+                if _is_writer() or isinstance(v, DTensor)}
         self.wait()  # one in-flight save at a time
+        if not _is_writer():
+            return
         self._thread = threading.Thread(
             target=self._write_safe, args=(step, host), daemon=True)
         self._thread.start()
@@ -112,7 +152,7 @@ class CheckpointManager:
         os.makedirs(tmp)
         manifest = {"step": step, "time": time.time(), "arrays": {}}
         for i, (key, t) in enumerate(items.items()):
-            host = t.detach().to("cpu", copy=copy)
+            host = _whole(t).detach().to("cpu", copy=copy)
             arr, dtype = _to_numpy(host)
             fname = f"arr_{i:06d}.npy"
             np.save(os.path.join(tmp, fname), arr)
@@ -131,6 +171,8 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _distributed():  # rank 0's write is on disk for every rank
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -147,10 +189,19 @@ class CheckpointManager:
                     pass
         return max(steps) if steps else None
 
-    def restore(self, step: int, target_tree: Any, device=None):
+    def restore(self, step: int, target_tree: Any, device=None,
+                shardings: Any = None):
         """Load step ``step`` into the structure of ``target_tree`` (whose
-        leaves give the expected shapes). Each leaf lands on ``device``, or
-        on the device of the target's leaf when ``device`` is None."""
+        leaves give the expected shapes). With ``shardings`` (a tree of
+        DTensor placements matching the target, e.g. from
+        ``train.state_shardings``) each leaf lands on its placements on
+        the current mesh, whatever mesh wrote it. Otherwise each leaf
+        lands on ``device``, or on the device of the target's leaf when
+        ``device`` is None."""
+        mesh = current_mesh() if shardings is not None else None
+        if shardings is not None and mesh is None:
+            raise ValueError("restore(shardings=...) places leaves on the "
+                             "current mesh: call it under use_mesh(mesh)")
         d = os.path.join(self.directory, f"step_{step:010d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -165,14 +216,23 @@ class CheckpointManager:
                 raise ValueError(f"shape mismatch for {key}: ckpt "
                                  f"{tuple(t.shape)} vs target "
                                  f"{tuple(ref.shape)}")
-            out[key] = t.to(device if device is not None else ref.device)
+            if mesh is not None:
+                # every rank read the same file: each keeps its shard,
+                # with no communication
+                out[key] = distribute_tensor(
+                    t.to(mesh.device_type), mesh,
+                    tuple(_at(shardings, key)), src_data_rank=None)
+            else:
+                out[key] = t.to(device if device is not None
+                                else ref.device)
         return _unflatten_like(target_tree, out)
 
-    def restore_latest(self, target_tree: Any, device=None):
+    def restore_latest(self, target_tree: Any, device=None,
+                       shardings: Any = None):
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, target_tree, device)
+        return step, self.restore(step, target_tree, device, shardings)
 
     # -- gc -----------------------------------------------------------------
 

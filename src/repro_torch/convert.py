@@ -72,11 +72,13 @@ def params_from_jax(tree, cfg, device="cuda"):
 
 def train_state_from_jax(state, cfg, device="cuda"):
     """JAX train state ``{"params", "opt": {"mu", "nu", "step"}}`` (numpy
-    leaves) -> the port's, on ``device``: params and both moments through
-    :func:`params_from_jax`, the step as an int32 scalar."""
+    leaves), or a ZeRO-1 one with ``"master"`` too, -> the port's, on
+    ``device``: params (their dtypes kept: bf16 under ZeRO-1), the master
+    and both moments through :func:`params_from_jax`, the step as an
+    int32 scalar."""
     device = resolve_device(device)
     opt = state["opt"]
-    return {
+    out = {
         "params": params_from_jax(state["params"], cfg, device),
         "opt": {
             "mu": params_from_jax(opt["mu"], cfg, device),
@@ -85,3 +87,6 @@ def train_state_from_jax(state, cfg, device="cuda"):
                                  dtype=torch.int32, device=device),
         },
     }
+    if "master" in state:
+        out["master"] = params_from_jax(state["master"], cfg, device)
+    return out

@@ -74,7 +74,10 @@ def soft_moe_apply(params, moe_cfg, x, act: str = "silu",
         from ..kernels.tuning import config_from_moe
 
         kcfg = config_from_moe(moe_cfg, m=m, d=d)
-        phi_n = kops.normalized_phi(phi, params["scale"])
+        # normalized in phi's dtype, as the reference does; the kernels
+        # take it in f32 (the reference's kernels widen it inside), so a
+        # bf16 phi (a ZeRO-1 state's compute params) is widened here
+        phi_n = kops.normalized_phi(phi, params["scale"]).float()
         # one logits pass: dispatched slots + the combine softmax stats
         if telemetry:
             slots, d_stats, c_stats = kops.soft_moe_routing(

@@ -1,5 +1,5 @@
-"""Optimizer of the port, counterpart of ``repro/optim``: AdamW (the
-gradient compression of ``repro/optim/compression.py`` is not ported)."""
+"""Optimizer of the port, counterpart of ``repro/optim``: AdamW and the
+int8 error-feedback compression of the cross-pod gradient reduce."""
 from .adamw import (  # noqa: F401
     OptimizerConfig,
     adamw_init,
@@ -9,4 +9,12 @@ from .adamw import (  # noqa: F401
     schedule_lr,
     tree_leaves,
     tree_map,
+)
+from .compression import (  # noqa: F401
+    compress_with_feedback,
+    dequantize_int8,
+    ef_state_init,
+    pod_allreduce_compressed,
+    pod_allreduce_mean,
+    quantize_int8,
 )

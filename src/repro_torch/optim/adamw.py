@@ -10,6 +10,10 @@ scales the gradients in place): a functional update holds a second copy
 of params, mu and nu at once, ~41 GiB more at soft-moe-b/16-128e, which
 does not fit the 80 GB card beside the first. Leaves are the tensors of
 nested dicts and lists, in insertion order.
+
+Under a mesh the leaves are DTensors (``train/step.py``): the update
+runs on each rank's local shard, and the global norm counts each
+element once across the shards (``global_norm``).
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 
 @dataclass(frozen=True)
@@ -65,13 +71,37 @@ def adamw_init(params):
     }
 
 
+def _local(t):
+    """A DTensor's local shard (sharing its storage); a tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(tree):
     """sqrt of the sum of squares of every leaf, in f32, summed leaf by
-    leaf from 0 as the JAX function's Python ``sum``."""
-    total = 0
+    leaf from 0 as the JAX function's Python ``sum``. A DTensor leaf's
+    sum of squares is its local shard's, all-reduced over the mesh
+    dimensions that shard it (a dimension that replicates it adds it
+    once); the leaves sharded over the same dimensions share one
+    all-reduce."""
+    sums, groups = [], {}
     for x in tree_leaves(tree):
-        x = x.float()
-        total = total + torch.sum(x * x)
+        loc = _local(x).float()
+        sums.append(torch.sum(loc * loc))
+        if isinstance(x, DTensor):
+            dims = tuple(i for i, p in enumerate(x.placements)
+                         if p.is_shard())
+            if dims:
+                groups.setdefault((x.device_mesh, dims), []).append(
+                    len(sums) - 1)
+    for (mesh, dims), idx in groups.items():
+        part = torch.stack([sums[i] for i in idx])
+        for d in dims:
+            dist.all_reduce(part, group=mesh.get_group(d))
+        for j, i in enumerate(idx):
+            sums[i] = part[j]
+    total = 0
+    for s in sums:
+        total = total + s
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
@@ -82,7 +112,7 @@ def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
-        g.mul_(scale)
+        _local(g).mul_(scale)
     return grads, norm
 
 
@@ -93,15 +123,15 @@ def adamw_update(grads, opt_state, params, cfg: OptimizerConfig, lr=None):
     ``(params, {"mu", "nu", "step"}, {"grad_norm", "lr"})`` with the
     step advanced, as the JAX function returns its new trees."""
     step = opt_state["step"] + 1
-    lr = schedule_lr(cfg, step) if lr is None else lr
+    lr = schedule_lr(cfg, _local(step)) if lr is None else lr
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip_norm)
     b1, b2 = cfg.b1, cfg.b2
-    s = step.float()
+    s = _local(step).float()
     bc1 = 1 - torch.pow(b1, s)
     bc2 = 1 - torch.pow(b2, s)
     for g, m, v, p in zip(tree_leaves(grads), tree_leaves(opt_state["mu"]),
                           tree_leaves(opt_state["nu"]), tree_leaves(params)):
-        g = g.float()
+        g, m, v, p = _local(g).float(), _local(m), _local(v), _local(p)
         m.mul_(b1).add_(g * (1 - b1))          # b1 m + (1 - b1) g
         v.mul_(b2).add_((g * g).mul_(1 - b2))  # b2 v + (1 - b2) g^2
         delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))

@@ -42,7 +42,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.inspection, repro_torch.serve.telemetry, "
             "repro_torch.core.sparse_moe, repro_torch.core.ablations, "
             "repro_torch.serve.server, repro_torch.serve.faults, "
-            "repro_torch.serve.spec_decode, repro_torch.serve.exporter; "
+            "repro_torch.serve.spec_decode, repro_torch.serve.exporter, "
+            "repro_torch.distributed.a2a_routing, "
+            "repro_torch.distributed.compat, repro_torch.launch.mesh, "
+            "repro_torch.optim.compression; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")

@@ -429,8 +429,18 @@ def test_build_model_and_train_state():
                       tree_leaves(vit_init(torch.Generator().manual_seed(0),
                                            cfg))):
         assert torch.equal(t, ref)
-    with pytest.raises(NotImplementedError, match="ZeRO-1"):
-        init_train_state(torch.Generator(), init, zero1=True)
+    # ZeRO-1: bf16 compute params beside the f32 master (the plain init),
+    # the moments over the master
+    z = init_train_state(torch.Generator().manual_seed(0), init, zero1=True)
+    assert set(z) == {"params", "master", "opt"}
+    for p, m, ref in zip(tree_leaves(z["params"]), tree_leaves(z["master"]),
+                         tree_leaves(state["params"])):
+        assert torch.equal(m, ref) and m.dtype == torch.float32
+        assert p.dtype == torch.bfloat16
+        assert torch.equal(p, ref.to(torch.bfloat16))
+    for t, m in zip(tree_leaves(z["opt"]["nu"]), tree_leaves(z["master"])):
+        assert t.dtype == m.dtype and t.shape == m.shape and not t.any()
+    assert int(z["opt"]["step"]) == 0
     # the encoder-decoder: (encdec_init, its loss, encdec_apply)
     scfg = reduced(get_config("seamless-m4t-large-v2"))
     init, loss_fn, apply_fn = build_model(scfg)
