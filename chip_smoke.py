@@ -73,10 +73,16 @@ prints no result line):
    bound, its plain version and the einsum path of the same reductions
    (no single PyTorch call computes them), with the device time of each
    launch of a call (norm pre-pass, main kernel, merge).
-7. serve: full-width qwen2-0.5b (24 layers, random weights from a seeded
-   generator, bf16 compute) answers 16 greedy requests through
+The serving phases 7, 12-14, 17, 19 and 22 are host bound, so they serve
+their models at full width with the depth cut (``SERVE_DEPTH``: the first
+8 of qwen2-0.5b's and granite's 24 layers, 9 of deepseek's 27, 10 of
+pixtral's 40, 12 of mamba2's 48, 16 of hymba's 32); phase 24 serves
+qwen2-0.5b at full depth.
+
+7. serve: full-width qwen2-0.5b (8 of 24 layers, random weights from a
+   seeded generator, bf16 compute) answers 16 greedy requests through
    ``ServeEngine(backend="paged")``; the kernel's launch count must equal
-   decode steps x 24. A second kernel engine then runs the same requests,
+   decode steps x 8. A second kernel engine then runs the same requests,
    and a burst of 8 short ones that keeps every slot decoding, tick by
    tick beside a gather-path engine (``use_kernel=False``), both
    prefilling in chunks of 256, teacher forced: the logits of every
@@ -143,7 +149,7 @@ prints no result line):
    granite-moe-1b-a400m+soft (random weights, bf16 serving weights with
    the routing weights in f32) over 8 requests of 16-256 prompt tokens,
    16 new tokens each: every request finishes, K7 launches decode steps
-   x 24 times and K1-K6 never (serving runs the MoE einsum path), every
+   x layers times and K1-K6 never (serving runs the MoE einsum path), every
    MoE layer's routing keys are present and finite in
    ``telemetry_snapshot()``, the sparse ``dropped_fraction`` is 0
    (dropless), and greedy tokens with telemetry on equal those with it
@@ -155,8 +161,8 @@ prints no result line):
    the target row alone and co-batched at its first decode step, every
    layer's intermediates compared in call order, the greedy tokens of
    both runs, and the differing ops alone at the step's shapes.
-13. mla serve: full-width, full-depth deepseek-v2-lite-16b (MLA, layer 0
-   dense, 26 Tokens Choice layers of top-6 of 64 experts + 2 shared;
+13. mla serve: full-width deepseek-v2-lite-16b (MLA, layer 0 dense, the
+   next 8 of its 26 Tokens Choice layers of top-6 of 64 experts + 2 shared;
    random weights drawn layer by layer and cast to the serving dtypes as
    drawn, ``serving_weights``, checked bitwise against
    ``serving_params(lm_init(...))`` at reduced size): one MLA layer in f32
@@ -167,11 +173,11 @@ prints no result line):
    decode gathers, as in the reference), dropped 0 in every MoE layer,
    tokens with telemetry on == off; decode p50, tok/s and peak memory;
    ``batch_variance_probe`` (batch 4, recorded) and its bisection.
-14. vlm: full-width, full-depth pixtral-12b (weights as in phase 13):
+14. vlm: full-width pixtral-12b, 10 of 40 layers (weights as in phase 13):
    ``lm_apply(embeds=)`` on 2 rows of 256 N(0, 1) patch embeddings + 256
    tokens under ``torch.inference_mode()``: finite logits of shape (2,
    512, 131072), forward p50 and peak memory; then text-only serving over
-   phase 12's trace, K7 launches = decode steps x 40, and the kernel
+   phase 12's trace, K7 launches = decode steps x 10, and the kernel
    engine teacher forced against a gather-path engine (bound 5e-2).
 15. long lm train: deepseek-v2-lite-16b at full width with the depth cut
    to 4 layers (layer 0 dense, 1-3 Tokens Choice as published; random
@@ -190,13 +196,13 @@ prints no result line):
    continued over 100 more with the carried state and conv ring; 4
    decode steps; an inactive row whose ring and state stay bitwise as
    they were on the card.
-17. ssm serve: full-width, full-depth mamba2-370m (48 attention-free
-   layers) and hymba-1.5b (32 layers of attention and Mamba-2 in
-   parallel, window 1024 on 30) with bf16 serving weights (the SSM's
+17. ssm serve: full-width mamba2-370m (12 of 48 attention-free layers)
+   and hymba-1.5b (16 of 32 layers of attention and Mamba-2 in parallel,
+   window 1024 on 15, the 16th global) with bf16 serving weights (the SSM's
    A_log, D and dt_bias f32) through the paged engine over phase 12's
    geometry and trace (hymba's with one more prompt of 1200 tokens, past
    the window): every request finishes, the prefix cache is off, K7
-   launches 0 for mamba2 and decode steps x 32 for hymba; every SSM
+   launches 0 for mamba2 and decode steps x 16 for hymba; every SSM
    layer's served outputs (chunked prefill, decode) against its no-cache
    chunked form on the inputs the engine fed it (5e-2 of max|ref| per
    layer), and every K7 call of hymba's kernel engine against the gather
@@ -212,15 +218,15 @@ prints no result line):
    step p50, tokens/s, peak memory and a profiled step.
 19. contiguous serve: ``ServeEngine(backend="contiguous")`` (the
    default: one 2048-slot ring row a slot, attention gathers the ring,
-   no kernel) serves full-width qwen2-0.5b over phase 7's trace
+   no kernel) serves full-width qwen2-0.5b (8 layers) over phase 7's trace
    (prefill chunks of 256) beside the paged gather engine
    (``use_kernel=False``): every request
    finishes, K7 launches 0 times, decode p50, tok/s, peak_cache_bytes
    (8 x 2048 positions reserved) and peak memory of both; the two
    engines teacher forced within 5e-2 of max|ref| with the share of
    equal greedy tokens; a profiled window and ``batch_variance_probe``
-   (batch 4) on the contiguous backend. Then full-width hymba-1.5b in
-   f32 on the contiguous engine (prefill chunks of 32), teacher forced
+   (batch 4) on the contiguous backend. Then full-width hymba-1.5b (16
+   layers) in f32 on the contiguous engine (prefill chunks of 32), teacher forced
    within 1e-4 of max|ref|: phase 17's 8 short prompts against the paged
    gather engine, and its 1200-token prompt, which wraps the local
    layers' 1024-slot rings, against the same engine on the host CPU (the
@@ -244,14 +250,14 @@ prints no result line):
    x 512 tokens and 512 frames of 1024 of ``SyntheticSeq2Seq`` (no
    closing save): a finite loss within 1 of ln 256206, step p50,
    tokens/s, peak memory and a profiled step.
-22. serving stack: full-width qwen2-0.5b (phase 7's geometry and
-   16-request trace, prefill chunks of 256, random weights, bf16) served
+22. serving stack: full-width qwen2-0.5b (8 layers, phase 7's geometry
+   and 16-request trace, prefill chunks of 256, random weights, bf16) served
    through
    ``AsyncServer`` over a paged kernel engine with span tracing and a
    256-tick flight recorder, 8 requests by ``generate`` and 8 by
    ``submit`` + ``stream``, concurrent: every request finishes, streams
    equal the final tokens, tokens bitwise equal to the same engine
-   driven directly with tracing off, K7 = decode model calls x 24, every
+   driven directly with tracing off, K7 = decode model calls x 8, every
    span timeline valid, ``/metrics`` fetched over the server's socket
    parses strictly, ``/healthz`` ok, a recorder dump with the
    reference's record keys; the decode tick p50 of one direct drive with
@@ -294,6 +300,22 @@ prints no result line):
    width (E 32, top-8, d 1024, ff 512, SwiGLU; one layer of the
    as-configured model's router and experts, 16384 f32 tokens) against
    the dense dropless top-k within 1e-3 of max|ref|, and its time.
+24. wave and roofline: the dry-runs of qwen2-0.5b (``train_4k`` on 256
+   fake ranks, again on 512 with ``--multi-pod``, and ``decode_32k``)
+   start as host-only subprocesses (no card, 180 s limit, each must
+   print ``"status": "ok"``); meanwhile one f32 ``WaveEngine`` prefill of
+   phase 7's first 8 prompts, right-aligned with pads at position -1,
+   is held within 1e-4 of max|ref| of batch-1 unpadded prefills. Then
+   full-width qwen2-0.5b in bf16 serves phase 7's 16 requests through
+   ``WaveEngine`` (batch 8, max_len 2048), the contiguous and the paged
+   ``ServeEngine`` (prefill chunks of 256), each warmed first: every
+   request finishes, K7 launches paged decode calls x 24 and 0 on the
+   other two, the wave's cache equals the ring's; tok/s, makespan,
+   decode calls, decode p50, TTFT p50 and peak_cache_bytes of each, the
+   share of greedy tokens the wave and the contiguous engine agree on;
+   the analytic roofline of one wave decode step beside its p50, and
+   phase 10's granite+soft step as a share of the bf16 peak in model
+   FLOPs and in analytic FLOPs; last, the dry-runs' terms.
 
 Each phase logs its wall time. The lines before the last carry the
 numbers: the card line as
@@ -1793,6 +1815,45 @@ def phase_routing_health(torch):
 # ---------------------------------------------------------------------------
 
 
+# The serving phases before phase 24 are host bound: the host launches
+# every layer's kernels each tick while the card idles 87-94% of it (their
+# profiled windows), so their wall time follows the depth, and the 1200 s
+# limit is shared by every phase. They serve at full width with the depth
+# cut to these layer counts; phase 24 serves qwen2-0.5b at full depth.
+SERVE_DEPTH = {
+    "qwen2-0.5b": 8,
+    "granite-moe-1b-a400m": 8,
+    "granite-moe-1b-a400m+soft": 8,
+    "deepseek-v2-lite-16b": 9,
+    "pixtral-12b": 10,
+    "mamba2-370m": 12,
+    "hymba-1.5b": 16,  # one period: 15 local layers, one global
+}
+
+
+def serving_config(name):
+    """``get_config(name)`` at full width with its depth cut to
+    ``SERVE_DEPTH[name]``: the first layers of the published stack, with a
+    numbered MoE layer list kept below the cut ("all" keeps its meaning)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(name)
+    n = SERVE_DEPTH[name]
+    moe = full.moe_layers
+    if moe and moe not in ("all", "second_half"):
+        moe = ",".join(str(i) for i in full.moe_layer_indices() if i < n)
+    return dataclasses.replace(full, num_layers=n, moe_layers=moe)
+
+
+def depth_note(cfg):
+    """``"8 of 24 layers"``: the served depth beside the published one."""
+    from repro_torch.configs import get_config
+
+    return f"{cfg.num_layers} of {get_config(cfg.name).num_layers} layers"
+
+
 def make_requests(np, vocab, seed=0):
     """16 prompts of 16..1024 tokens; requests 0 and 12 share a 256-token
     prefix (12 is admitted long after 0 has published it)."""
@@ -2006,18 +2067,17 @@ def profile_step(torch, step, state, b, label):
 def phase_serve(torch, card):
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_decode_attend
     from repro_torch.models import lm_init
     from repro_torch.optim import tree_leaves
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = serving_config("qwen2-0.5b")
     t0 = time.perf_counter()
     params = lm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
+    log(f"[serve] {cfg.name}: {depth_note(cfg)} d={cfg.d_model} "
         f"ff={cfg.d_ff} heads {cfg.attention.num_heads}/"
         f"{cfg.attention.num_kv_heads} vocab {cfg.vocab_size}, "
         f"{n_params / 1e6:.1f} M params (init "
@@ -3078,13 +3138,13 @@ def moe_serve_requests(np, vocab, seed=2):
 
 def phase_moe_serve(torch, card):
     """The paged engine serves granite-moe-1b-a400m (Tokens Choice) and
-    its +soft twin at full width with telemetry on: K7 on every decode
-    step, per-row dropless routing, the batch-variance probe."""
+    its +soft twin at full width (depth cut, ``SERVE_DEPTH``) with
+    telemetry on: K7 on every decode step, per-row dropless routing, the
+    batch-variance probe."""
     import dataclasses
 
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_decode_attend
     from repro_torch.kernels.soft_moe_kernels import (
         combine_apply,
@@ -3104,7 +3164,7 @@ def phase_moe_serve(torch, card):
     for name in ("granite-moe-1b-a400m", "granite-moe-1b-a400m+soft"):
         gc.collect()
         torch.cuda.empty_cache()
-        cfg = get_config(name)
+        cfg = serving_config(name)
         params = lm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
         prompts = moe_serve_requests(np, cfg.vocab_size)
         warm = ServeEngine(cfg, params, telemetry=True, **geo)
@@ -3137,7 +3197,8 @@ def phase_moe_serve(torch, card):
         n_tok = sum(len(r.out) for r in reqs)
         on50 = statistics.median(decode_s) * 1e3
         off50 = statistics.median(runs[False][3]) * 1e3
-        log(f"[moe-serve] {name} ({cfg.moe.variant}): {len(reqs)} requests "
+        log(f"[moe-serve] {name} ({cfg.moe.variant}, {depth_note(cfg)}): "
+            f"{len(reqs)} requests "
             f"done={done}, {eng.decode_steps} decode steps; K7 launches {k7} "
             f"(decode_steps x "
             f"{cfg.num_layers} = {eng.decode_steps * cfg.num_layers}), "
@@ -3173,7 +3234,7 @@ def phase_moe_serve(torch, card):
         del params
     gc.collect()
     torch.cuda.empty_cache()
-    qcfg = get_config("qwen2-0.5b")
+    qcfg = serving_config("qwen2-0.5b")
     qparams = lm_init(torch.Generator(device="cuda").manual_seed(0), qcfg)
     probes["qwen2-0.5b"] = batch_variance_probe(
         qcfg, qparams, [1, 2, 3, 4], batch_size=4, max_new_tokens=8,
@@ -3392,7 +3453,7 @@ def count_params(params):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: deepseek-v2-lite-16b (MLA) served at full width and depth
+# phase 13: deepseek-v2-lite-16b (MLA) served at full width, depth cut
 # ---------------------------------------------------------------------------
 
 
@@ -3467,12 +3528,12 @@ def mla_layer_check(torch, cfg, params, card):
 
 
 def phase_mla_serve(torch, card):
-    """The paged engine serves deepseek-v2-lite-16b at full width and depth
-    (MLA attention over the latent pool, 26 Tokens Choice layers): K7
-    never runs (MLA decode gathers, as in the reference), nor K1-K6."""
+    """The paged engine serves deepseek-v2-lite-16b at full width, depth
+    cut (``SERVE_DEPTH``: layer 0 dense, the next 8 Tokens Choice), MLA
+    attention over the latent pool: K7 never runs (MLA decode gathers, as
+    in the reference), nor K1-K6."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_decode_attend
     from repro_torch.kernels.soft_moe_kernels import (
         combine_apply,
@@ -3489,13 +3550,13 @@ def phase_mla_serve(torch, card):
     gc.collect()
     torch.cuda.empty_cache()
     check_serving_weights(torch)
-    cfg = get_config("deepseek-v2-lite-16b")
+    cfg = serving_config("deepseek-v2-lite-16b")
     a, moe = cfg.attention, cfg.moe
     t0 = time.perf_counter()
     params = serving_weights(torch, cfg)
     torch.cuda.synchronize()
     n_params, n_bytes = count_params(params)
-    log(f"[mla] {cfg.name}: {cfg.num_layers} layers (layer 0 dense, "
+    log(f"[mla] {cfg.name}: {depth_note(cfg)} (layer 0 dense, "
         f"{len(cfg.moe_layer_indices())} {moe.variant}, top-{moe.top_k} of "
         f"{moe.num_experts} experts + {moe.num_shared_experts} shared, d_ff "
         f"{moe.expert_d_ff}), d {cfg.d_model}, MLA {a.num_heads} heads, "
@@ -3583,30 +3644,29 @@ def phase_mla_serve(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: pixtral-12b, the vision frontend stub, at full width and depth
+# phase 14: pixtral-12b, the vision frontend stub, at full width, depth cut
 # ---------------------------------------------------------------------------
 
 
 def phase_vlm(torch, card):
-    """pixtral-12b at full width and depth: a forward with patch
-    embeddings, then text-only serving with K7 on every decode step, teacher
-    forced against the gather path."""
+    """pixtral-12b at full width, depth cut (``SERVE_DEPTH``): a forward
+    with patch embeddings, then text-only serving with K7 on every decode
+    step, teacher forced against the gather path."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_decode_attend
     from repro_torch.models import lm_apply
     from repro_torch.serve import Request, ServeEngine
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("pixtral-12b")
+    cfg = serving_config("pixtral-12b")
     fe = cfg.frontend
     t0 = time.perf_counter()
     params = serving_weights(torch, cfg)
     torch.cuda.synchronize()
     n_params, n_bytes = count_params(params)
-    log(f"[vlm] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+    log(f"[vlm] {cfg.name}: {depth_note(cfg)}, d {cfg.d_model}, "
         f"d_ff {cfg.d_ff}, {cfg.attention.num_heads} heads / "
         f"{cfg.attention.num_kv_heads} KV x {cfg.attention.head_dim}, vocab "
         f"{cfg.vocab_size}, frontend {fe.kind} ({fe.embed_dim} -> "
@@ -3946,7 +4006,7 @@ def phase_ssm(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 17: mamba2-370m and hymba-1.5b served at full width and depth
+# phase 17: mamba2-370m and hymba-1.5b served at full width, depth cut
 # ---------------------------------------------------------------------------
 
 
@@ -4123,8 +4183,8 @@ def ssm_layers_teacher_forced(torch, card, cfg, params, prompt, max_new):
 
 def phase_ssm_serve(torch, card):
     """The paged engine serves mamba2-370m (attention-free: K7 never runs)
-    and hymba-1.5b (K7 on all 32 layers, window 1024 on 30) at full width
-    and depth, bf16 weights with the SSM's A_log, D and dt_bias in f32;
+    and hymba-1.5b (K7 on every layer, window 1024 on all but the last)
+    at full width, depth cut (``SERVE_DEPTH``), bf16 weights with the SSM's A_log, D and dt_bias in f32;
     the prefix cache is off for both. Every SSM layer teacher forced
     against its chunked training form (``ssm_layers_teacher_forced``),
     and every K7 call of hymba's kernel engine against the gather path on
@@ -4135,7 +4195,6 @@ def phase_ssm_serve(torch, card):
     5e-2 serving bound."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_decode_attend
     from repro_torch.serve import Request, ServeEngine, batch_variance_probe
 
@@ -4147,7 +4206,7 @@ def phase_ssm_serve(torch, card):
     for name in ("mamba2-370m", "hymba-1.5b"):
         gc.collect()
         torch.cuda.empty_cache()
-        cfg = get_config(name)
+        cfg = serving_config(name)
         t0 = time.perf_counter()
         params = serving_weights(torch, cfg)
         torch.cuda.synchronize()
@@ -4159,7 +4218,7 @@ def phase_ssm_serve(torch, card):
                 1, cfg.vocab_size, size=1200).tolist())
         s = cfg.ssm
         a = cfg.attention
-        shape = (f"{cfg.num_layers} layers, d {cfg.d_model}, SSM "
+        shape = (f"{depth_note(cfg)}, d {cfg.d_model}, SSM "
                  f"{s.num_heads(cfg.d_model)} heads of {s.head_dim}, state "
                  f"{s.state_dim}")
         if a is not None:
@@ -4406,8 +4465,8 @@ def mla_ring_check(torch, card):
 
 
 def phase_contiguous_serve(torch, card):
-    """The contiguous ring backend (``ServeEngine``'s default) at full width
-    and depth: qwen2-0.5b over phase 7's trace beside the paged gather
+    """The contiguous ring backend (``ServeEngine``'s default) at full width,
+    depth cut (``SERVE_DEPTH``): qwen2-0.5b over phase 7's trace beside the paged gather
     engine (K7 never launches on the ring: attention gathers it, as in the
     reference), teacher forced within 5e-2 of max|ref|; hymba-1.5b in f32
     over phase 17's trace, teacher forced within 1e-4: its 8 short prompts
@@ -4418,7 +4477,6 @@ def phase_contiguous_serve(torch, card):
 
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_decode_attend
     from repro_torch.models import lm_init
     from repro_torch.optim import tree_map
@@ -4431,7 +4489,7 @@ def phase_contiguous_serve(torch, card):
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("qwen2-0.5b")
+    cfg = serving_config("qwen2-0.5b")
     params = lm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
     geo = dict(batch_size=8, max_len=2048, device="cuda")
     paged = dict(backend="paged", use_kernel=False, block_size=16)
@@ -4452,7 +4510,8 @@ def phase_contiguous_serve(torch, card):
     done = all(r.done and r.finish_reason == "length"
                for run in runs.values() for r in run[1])
     k7 = runs["contiguous"][4]
-    log(f"[contig] {cfg.name}: backend {type(eng.backend).__name__}, "
+    log(f"[contig] {cfg.name} ({depth_note(cfg)}): backend "
+        f"{type(eng.backend).__name__}, "
         f"{len(reqs)} requests done={done}, {eng.decode_steps} decode "
         f"steps, {eng.ticks} ticks; K7 launches {k7} (want 0); ring "
         f"{eng.backend.max_chunk} slots a layer")
@@ -4516,7 +4575,7 @@ def phase_contiguous_serve(torch, card):
     # held against the paged gather engine, the wrapping one against the
     # same contiguous engine on the host CPU, and its distance from the
     # paged engine is recorded.
-    hcfg = dataclasses.replace(get_config("hymba-1.5b"), dtype="float32")
+    hcfg = dataclasses.replace(serving_config("hymba-1.5b"), dtype="float32")
     hparams = serving_weights(torch, hcfg)
     short = moe_serve_requests(np, hcfg.vocab_size)
     long_prompt = [np.random.RandomState(3).randint(
@@ -4550,7 +4609,7 @@ def phase_contiguous_serve(torch, card):
             f"{rows} row logits; max|diff| / max|ref| at most "
             f"{max(rels):.3e}, median {statistics.median(rels):.3e}; "
             f"identical greedy tokens {agree}/{rows} = {agree / rows:.4f} "
-            f"({time.perf_counter() - t0:.1f} s)")
+            f"({time.perf_counter() - t0:.1f} s, {depth_note(hcfg)})")
         del cont, oracle, oparams
     k7 = paged_decode_attend.launches
     del hparams
@@ -5160,7 +5219,6 @@ def phase_serving_stack(torch, card):
 
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_decode_attend
     from repro_torch.models import lm_init
     from repro_torch.serve import (
@@ -5173,7 +5231,7 @@ def phase_serving_stack(torch, card):
         validate_timeline,
     )
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = serving_config("qwen2-0.5b")
     params = lm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
     L = cfg.num_layers
     geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda",
@@ -5248,7 +5306,8 @@ def phase_serving_stack(torch, card):
         f"on the same direct drive in turns (off, on, on, off; 8 requests "
         f"x 24 tokens): decode tick p50 {on * 1e3:.2f} ms on vs "
         f"{off * 1e3:.2f} ms off over {n_on} / {n_off} ticks, on/off "
-        f"{on / off:.4f}; K7 launches {eng.decode_steps} x {L}; "
+        f"{on / off:.4f}; K7 launches {eng.decode_steps} x {L} "
+        f"({depth_note(cfg)}); "
         f"/metrics {len(body.splitlines())} lines parse "
         f"({len(c)} counters, {len(parsed['histograms'])} histograms, "
         f"{len(parsed['gauges'])} gauges), /healthz ok; the recorder dump "
@@ -5670,6 +5729,255 @@ def phase_distributed(torch, card):
             "dispatch_bwd": launches[3], "combine_bwd": launches[4]}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the wave baseline, the analytic roofline and the dry-run
+# ---------------------------------------------------------------------------
+
+DRYRUNS = (("train_4k",), ("decode_32k",), ("train_4k", "--multi-pod"))
+
+
+def start_dryruns():
+    """Start the dry-runs of qwen2-0.5b (``DRYRUNS``) as host-only
+    subprocesses, all at once: they see no card and share nothing with
+    this process (which holds phase 23's process group)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return [(run, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen2-0.5b", "--shape", *run], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for run in DRYRUNS]
+
+
+def finish_dryruns(procs, timeout=180):
+    """Each dry-run's JSON line, waiting at most ``timeout`` seconds (from
+    this call) for all of them; a run that fails or prints no line
+    raises."""
+    deadline = time.perf_counter() + timeout
+    out = []
+    for run, p in procs:
+        try:
+            stdout, stderr = p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"dry-run {run} ran past {timeout} s")
+        line = next((ln for ln in stdout.splitlines()
+                     if ln.startswith('{"cell"')), None)
+        if p.returncode != 0 or line is None:
+            raise AssertionError(f"dry-run {run} failed (rc {p.returncode}):"
+                                 f" {stderr[-2000:]}")
+        out.append((run, json.loads(line)))
+    return out
+
+
+def stop_dryruns(procs):
+    """Kill and reap every dry-run still running."""
+    for _, p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def wave_prefill_check(torch, cfg, params, prompts):
+    """f32: each row of one padded wave prefill (right-aligned, pads at
+    position -1) against a batch-1 unpadded prefill of its prompt; returns
+    the largest max|diff| / max|ref| over the rows."""
+    from repro_torch.models import lm_apply
+    from repro_torch.serve import Request, WaveEngine
+
+    eng = WaveEngine(cfg, params, batch_size=len(prompts), max_len=2048,
+                     device="cuda")
+    got = {}
+    inner = eng._prefill
+
+    def prefill(*a):
+        logits, cache = inner(*a)
+        got["logits"] = logits[:, -1].clone()
+        return logits, cache
+
+    eng._prefill = prefill
+    for p in prompts:
+        eng.submit(Request(prompt=list(p), max_new_tokens=1))
+    eng.run()  # budget 1: the prefill alone
+    worst = 0.0
+    for i, p in enumerate(prompts):
+        ref = lm_apply(eng.params, cfg, torch.tensor([p], device="cuda"),
+                       mode="prefill", last_only=True)[0][0, -1]
+        worst = max(worst, rel_err(torch, got["logits"][i], ref))
+    return worst
+
+
+def run_wave(torch, eng, prompts, max_new):
+    """Drive a ``WaveEngine`` over ``prompts`` as ``run_engine`` drives a
+    ``ServeEngine``: the requests, the wall seconds and the decode-step
+    times (each call synchronised)."""
+    from repro_torch.serve import Request
+
+    decode_s = []
+    inner = eng._decode
+
+    def decode(*a):
+        t0 = time.perf_counter()
+        out = inner(*a)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+        return out
+
+    eng._decode = decode
+    reqs = [Request(prompt=list(p), max_new_tokens=max_new) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0, decode_s
+
+
+def phase_wave_roofline(torch, card, soft):
+    """The wave-synchronous baseline beside the contiguous and the paged
+    engine at full qwen2-0.5b width and depth, the analytic roofline of a
+    wave decode step and of phase 10's granite+soft step (``soft``: its
+    summary), and the dry-run of qwen2-0.5b on 256 and 512 fake ranks.
+    Returns K7's launches of the paged run."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels.paged_attention import paged_decode_attend
+    from repro_torch.models import lm_init
+    from repro_torch.roofline import HBM_BW, PEAK_FLOPS_BF16, model_flops
+    from repro_torch.roofline.flops import _cache_bytes, fwd_flops
+    from repro_torch.serve import ServeEngine, WaveEngine
+
+    procs = start_dryruns()
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config("qwen2-0.5b")
+        params = lm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+        prompts = make_requests(np, cfg.vocab_size)
+        max_new, batch, max_len = 32, 8, 2048
+
+        # held: the padded wave prefill in f32 against batch-1 prefills
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        rel = wave_prefill_check(torch, cfg32, params, prompts[:batch])
+        log(f"[wave] {card}: {cfg.name} f32 wave prefill (batch {batch}, "
+            f"prompts of {min(map(len, prompts[:batch]))}-"
+            f"{max(map(len, prompts[:batch]))} tokens right-aligned) vs "
+            f"batch-1 unpadded prefills: first-token logits max|diff| / "
+            f"max|ref| at most {rel:.3e} (tol 1e-4)")
+        if not math.isfinite(rel) or rel > 1e-4:
+            raise AssertionError("the padded wave prefill disagrees with "
+                                 "the unpadded one")
+
+        engines = {
+            "wave": lambda: WaveEngine(cfg, params, batch_size=batch,
+                                       max_len=max_len, device="cuda"),
+            "contiguous": lambda: ServeEngine(
+                cfg, params, batch_size=batch, max_len=max_len,
+                prefill_chunk=256, device="cuda"),
+            "paged": lambda: ServeEngine(
+                cfg, params, batch_size=batch, max_len=max_len,
+                prefill_chunk=256, backend="paged", block_size=16,
+                device="cuda"),
+        }
+        drive = {"wave": run_wave}
+        for name, make in engines.items():  # warm-up: allocator, cuBLAS
+            drive.get(name, run_engine)(torch, make(), prompts[1:3], 4)
+        dry = finish_dryruns(procs)
+    finally:
+        stop_dryruns(procs)
+
+    # the timed runs, in bf16, over phase 7's trace
+    runs = {}
+    for name, make in engines.items():
+        eng = make()
+        paged_decode_attend.launches = 0
+        reqs, wall, decode_s = drive.get(name, run_engine)(
+            torch, eng, prompts, max_new)
+        runs[name] = (eng, reqs, wall, decode_s, paged_decode_attend.launches)
+    k7 = runs["paged"][4]
+    for name, (eng, reqs, wall, decode_s, launches) in runs.items():
+        n_tok = sum(len(r.out) for r in reqs)
+        ttft = statistics.median(r.t_first_token - r.t_submit for r in reqs)
+        log(f"[wave] {card}: {cfg.name} {name} engine (batch {batch}, "
+            f"max_len {max_len}): {n_tok / wall:.1f} tok/s ({n_tok} tokens, "
+            f"makespan {wall:.3f} s), {eng.decode_steps} decode calls, "
+            f"decode p50 {statistics.median(decode_s) * 1e3:.2f} ms, TTFT "
+            f"p50 {ttft * 1e3:.1f} ms, peak_cache_bytes "
+            f"{eng.peak_cache_bytes()}, K7 launches {launches}")
+    done = all(r.done and r.finish_reason == "length"
+               for run in runs.values() for r in run[1])
+    tok_s = {n: sum(len(r.out) for r in run[1]) / run[2]
+             for n, run in runs.items()}
+    wave_out = [t for r in runs["wave"][1] for t in r.out]
+    cont_out = [t for r in runs["contiguous"][1] for t in r.out]
+    agree = sum(a == b for a, b in zip(wave_out, cont_out))
+    cache_b = {n: run[0].peak_cache_bytes() for n, run in runs.items()}
+    log(f"[wave] {card}: continuous/wave tok/s "
+        f"{tok_s['contiguous'] / tok_s['wave']:.4f} (contiguous), "
+        f"{tok_s['paged'] / tok_s['wave']:.4f} (paged); paged/contiguous "
+        f"peak cache {cache_b['paged'] / cache_b['contiguous']:.4f}; wave "
+        f"vs contiguous greedy tokens equal {agree}/{len(wave_out)} = "
+        f"{agree / len(wave_out):.4f}")
+    if not done or k7 != runs["paged"][0].decode_steps * cfg.num_layers \
+            or k7 == 0 or runs["wave"][4] or runs["contiguous"][4]:
+        raise AssertionError("wave phase: an unfinished request, or K7 "
+                             "launches other than decode calls x layers "
+                             "on the paged engine alone")
+    if cache_b["wave"] != cache_b["contiguous"]:
+        raise AssertionError("the wave's cache is not one contiguous ring "
+                             "row a slot")
+
+    # the analytic roofline of one wave decode step (batch 8 over the
+    # 2048-slot rings, which the contiguous decode attends in full)
+    wave_p50 = statistics.median(runs["wave"][3])
+    f_dec = fwd_flops(cfg, batch, 1, "decode", cache_len=max_len)
+    b_dec = (cfg.param_count() * 2 + _cache_bytes(cfg, batch, max_len)
+             + batch * cfg.vocab_size * 4)
+    t_ops, t_bytes = f_dec / PEAK_FLOPS_BF16, b_dec / HBM_BW
+    bound = max(t_ops, t_bytes)
+    log(f"[roofline] {card}: {cfg.name} wave decode step: fwd_flops "
+        f"{f_dec:.6e}, analytic bytes {b_dec:.6e}, bound "
+        f"{bound * 1e3:.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
+        f"vs measured p50 {wave_p50 * 1e3:.2f} ms = {bound / wave_p50:.4f} "
+        f"of the bound")
+    gcfg = get_config("granite-moe-1b-a400m+soft")
+    shape = ShapeConfig("phase 10", 2048, 8, "train")
+    mf = model_flops(gcfg, shape, "train")
+    af = fwd_flops(gcfg, 8, 2048, "train") * (3.0 + (1.0 if gcfg.remat
+                                                      else 0.0))
+    p50 = soft["p50"]
+    log(f"[roofline] {card}: {gcfg.name} train step 8 x 2048 (phase 10 "
+        f"p50 {p50 * 1e3:.2f} ms): model_flops (6 N_active D) {mf:.6e} = "
+        f"{mf / p50 / PEAK_FLOPS_BF16:.4f} of PEAK_FLOPS_BF16; fwd_flops x "
+        f"(3 + remat) {af:.6e} = {af / p50 / PEAK_FLOPS_BF16:.4f}")
+
+    # the dry-runs (256 and 512 fake ranks, meta tensors, host only)
+    for _, r in dry:
+        rf, mem = r["roofline"], r["memory"]
+        log(f"[dryrun] {r['cell']} {r['mesh']}: "
+            f"status {r['status']}, run {r['run_s']} s; compute "
+            f"{rf['t_compute_s']:.6e} s, memory {rf['t_memory_s']:.6e} s, "
+            f"collective {rf['t_collective_s']:.6e} s -> {rf['bottleneck']}"
+            f", roofline_fraction {rf['roofline_fraction']:.4f}, "
+            f"useful_flops_fraction {rf['useful_flops_fraction']:.4f}; args "
+            f"{mem['args_bytes_per_dev']} B/dev; collectives "
+            f"{r['collectives']['counts']}, NVLink-weighted "
+            f"{r['collectives']['ici_weighted_bytes']:.6e} B, inter-node "
+            f"{r['collectives']['pod_weighted_bytes']:.6e} B")
+        if r["status"] != "ok":
+            raise AssertionError(f"dry-run {r['cell']}: {r['status']}")
+    del runs, params
+    torch.cuda.empty_cache()
+    return {"paged_decode_attend": k7}
+
+
 def _get(tree, path):
     for k in path:
         tree = tree[k]
@@ -5718,6 +6026,9 @@ def main():
             phase_serving_stack, torch, card)["paged_decode_attend"]
         for name, n in timed(phase_distributed, torch, card).items():
             launches[name] += n
+        launches["paged_decode_attend"] += timed(
+            phase_wave_roofline, torch, card, soft_summary)[
+                "paged_decode_attend"]
         log(f"[phase] all phases: {time.perf_counter() - t0:.1f} s wall")
     except Exception as e:  # noqa: BLE001 — report which phase failed
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr,

@@ -1,3 +1,4 @@
 """Launch helpers of the port, counterpart of ``repro/launch``: the mesh
-builders (``launch/mesh.py``). The reference's ``specs.py``,
-``dryrun.py`` and ``hillclimb.py`` wait for the port of the roofline."""
+constructors (``mesh.py``), the meta-device cell specs (``specs.py``), the
+multi-pod dry-run on a fake process group (``dryrun.py``) and the perf
+hillclimb loop over it (``hillclimb.py``)."""

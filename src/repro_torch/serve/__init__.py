@@ -10,7 +10,7 @@ or the paged cache backend.
   scheduler     — host-side admission queue + slot state machine
   spec_decode   — speculative decoding: n-gram self-drafting, (B, k+1)
                   verify, exact-match accept with exact rollback
-  engine        — ServeEngine
+  engine        — ServeEngine (continuous) / WaveEngine (lockstep baseline)
   server        — AsyncServer: asyncio front end (deadlines, cancellation,
                   load shedding, retry with backoff, token streaming)
   metrics       — ServeMetrics counters/histograms + stuck-step Watchdog
@@ -33,7 +33,7 @@ from .cache_pool import (  # noqa: F401
     pool_row,
     pool_write_row,
 )
-from .engine import ServeEngine  # noqa: F401
+from .engine import ServeEngine, WaveEngine  # noqa: F401
 from .exporter import (  # noqa: F401
     parse_prometheus,
     render_prometheus,

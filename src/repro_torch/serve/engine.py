@@ -20,6 +20,10 @@ serving modes) on the MoE einsum path, as in the reference;
 ``telemetry=True`` collects the model-interior telemetry of every call
 (``serve/telemetry.py``).
 
+``WaveEngine`` keeps the wave-synchronous baseline: a wave of requests
+admits together, prefills whole, decodes in lockstep and holds every
+slot until its last row ends.
+
 ``spec`` serves through speculative decoding (``serve/spec_decode.py``),
 ``cache_generated`` publishes retired requests' generated tokens into
 the radix tree, ``trace`` records per-request span timelines and
@@ -30,17 +34,24 @@ served token.
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..layers.common import dtype_of, resolve_device
+from ..models import init_cache, lm_apply
 from ..models.lm import check_supported
 from ..roofline import serving_program_bounds
 from .block_manager import PagedBackend
 from .cache_pool import ContiguousBackend
-from .sampling import GREEDY, SamplingParams, sample_tokens_checked
+from .programs import make_decode_step
+from .sampling import (
+    GREEDY,
+    SamplingParams,
+    sample_tokens,
+    sample_tokens_checked,
+)
 from .scheduler import Request, Scheduler
 from .spec_decode import SpecConfig, SpecDecoder
 from .telemetry import TelemetryAggregator
@@ -576,3 +587,138 @@ class ServeEngine:
             measured = timer.total_s / timer.calls
             out[name] = bounds[name] / measured if measured > 0 else 0.0
         return out
+
+
+# ---------------------------------------------------------------------------
+# Wave-synchronous baseline
+# ---------------------------------------------------------------------------
+
+
+class WaveEngine:
+    """The pre-continuous engine, counterpart of the reference's
+    ``WaveEngine``: a wave of up to ``batch_size`` requests admits
+    together, prefills in one whole-prompt call on a fresh ``init_cache``,
+    decodes in lockstep, and every slot is held until the LAST row of the
+    wave finishes. The baseline every serving comparison measures against.
+
+    Prompts are right-aligned, so every row's last prompt token sits at
+    the same index; left pads carry ``pad_id`` at position -1, which
+    writes nothing and is masked out of attention. Decoding runs through
+    the contiguous decode program (no kernel, as in the reference) until
+    the longest budget ends or a row reaches ``max_len``. Sampled rows use
+    the port's per-row seeds (``sampling._row_seed``). ``device`` is
+    where the model and the cache live (``"cuda"`` unless the caller asks
+    for ``"cpu"``)."""
+
+    def __init__(self, cfg, params, batch_size: int, max_len: int,
+                 eos_id: Optional[int] = None, pad_id: int = 0,
+                 default_sampling: SamplingParams = GREEDY, seed: int = 0,
+                 device="cuda"):
+        del seed  # the reference's signature; sampling is seeded per row
+        check_supported(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = serving_params(params, cfg)
+        self.batch = batch_size
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.pad_id = pad_id
+        self.default_sampling = default_sampling
+
+        def prefill(params, tokens, positions, cache):
+            logits, cache, _ = lm_apply(params, cfg, tokens,
+                                        positions=positions, cache=cache,
+                                        mode="prefill", last_only=True)
+            return logits, cache
+
+        self._prefill = prefill
+        self._decode = make_decode_step(cfg)
+        self.queue: List[Request] = []
+        self.decode_steps = 0
+
+    def peak_cache_bytes(self) -> int:
+        """Bytes of one wave's cache, built on the meta device: shapes and
+        dtypes only, nothing allocated."""
+        cache = init_cache(self.cfg, self.batch, self.max_len,
+                           device="meta")
+        return sum(t.numel() * t.element_size()
+                   for layer in cache for part in layer.values()
+                   for t in part.values())
+
+    def submit(self, req: Request):
+        req.t_submit = time.perf_counter()
+        self.queue.append(req)
+
+    def _sample_wave(self, wave, logits, step_base: int) -> np.ndarray:
+        sp = [r.sampling if r.sampling is not GREEDY
+              else self.default_sampling for r in wave]
+        sp += [GREEDY] * (self.batch - len(wave))
+        toks = sample_tokens(
+            logits[:, -1].float(),
+            np.array([p.temperature for p in sp], np.float32),
+            np.array([p.top_k for p in sp], np.int32),
+            np.array([p.top_p for p in sp], np.float32),
+            np.array([p.seed for p in sp], np.int32),
+            np.full((self.batch,), step_base, np.int32),
+        )
+        return toks.cpu().numpy()
+
+    def _run_wave(self, wave: List[Request]) -> int:
+        plen = max(len(r.prompt) for r in wave)
+        toks = np.full((self.batch, plen), self.pad_id, np.int64)
+        poss = np.full((self.batch, plen), -1, np.int64)
+        for i, r in enumerate(wave):
+            # right-align so the last prompt token sits at index plen-1
+            toks[i, plen - len(r.prompt):] = r.prompt
+            poss[i, plen - len(r.prompt):] = np.arange(len(r.prompt))
+        cache = init_cache(self.cfg, self.batch, self.max_len,
+                           device=self.device)
+        logits, cache = self._prefill(
+            self.params, torch.as_tensor(toks, device=self.device),
+            torch.as_tensor(poss, device=self.device), cache)
+        nxt = self._sample_wave(wave, logits, 0)
+        now = time.perf_counter()
+        for i, r in enumerate(wave):
+            r.out.append(int(nxt[i]))
+            r.t_first_token = now
+        steps = 0
+        budget = max(r.max_new_tokens for r in wave)
+        pos = np.array([len(r.prompt) for r in wave]
+                       + [0] * (self.batch - len(wave)), np.int64)
+        cur = nxt[:, None]
+        while steps < budget - 1 and int(pos.max()) < self.max_len:
+            logits = self._decode(
+                self.params, torch.as_tensor(cur, device=self.device),
+                torch.as_tensor(pos, device=self.device), cache)
+            self.decode_steps += 1
+            nxt = self._sample_wave(wave, logits, steps + 1)
+            now = time.perf_counter()
+            for i, r in enumerate(wave):
+                if not r.done and len(r.out) < r.max_new_tokens:
+                    tok = int(nxt[i])
+                    r.out.append(tok)
+                    if self.eos_id is not None and tok == self.eos_id:
+                        r.done = True
+                        r.finish_reason = "eos"
+                        r.t_done = now
+            cur = nxt[:, None]
+            pos += 1
+            steps += 1
+        now = time.perf_counter()
+        for r in wave:
+            if not r.done:
+                r.done = True
+                r.finish_reason = ("length" if len(r.out) >= r.max_new_tokens
+                                   else "cache_ceiling")
+                r.t_done = now
+        return steps + 1
+
+    def run(self) -> int:
+        """Run every queued wave to its end; returns the waves' sampling
+        passes (prefill plus decode steps), as the reference does."""
+        total = 0
+        while self.queue:
+            wave = self.queue[:self.batch]
+            self.queue = self.queue[self.batch:]
+            total += self._run_wave(wave)
+        return total

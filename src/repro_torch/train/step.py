@@ -132,7 +132,8 @@ def _reduce_metrics(mesh, metrics, name=None):
     if isinstance(metrics, dict):
         return {k: _reduce_metrics(mesh, v, k) for k, v in metrics.items()}
     is_max = name is not None and str(name).startswith("max_")
-    out = torch.as_tensor(metrics, device=mesh.device_type).clone()
+    out = (metrics.detach().clone() if torch.is_tensor(metrics)
+           else torch.tensor(metrics, device=mesh.device_type))
     dims, n = _batch_dims(mesh)
     for d in dims:
         dist.all_reduce(out, op=dist.ReduceOp.MAX if is_max

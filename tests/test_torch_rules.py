@@ -45,7 +45,12 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serve.spec_decode, repro_torch.serve.exporter, "
             "repro_torch.distributed.a2a_routing, "
             "repro_torch.distributed.compat, repro_torch.launch.mesh, "
-            "repro_torch.optim.compression; "
+            "repro_torch.optim.compression, repro_torch.roofline.flops, "
+            "repro_torch.roofline.analysis, "
+            "repro_torch.roofline.collectives, repro_torch.launch.specs, "
+            "repro_torch.launch.dryrun, repro_torch.launch.hillclimb; "
+            "import torch.distributed as dist; "
+            "assert not dist.is_initialized(); "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -76,6 +81,10 @@ def test_cuda_request_without_a_gpu_raises():
     # the entry points default to the card
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(cfg, params, batch_size=2, max_len=32)
+    from repro_torch.serve import WaveEngine
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WaveEngine(cfg, params, batch_size=2, max_len=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax(tree, cfg)
     vcfg = reduced(get_config("soft-moe-s/16-128e"))
