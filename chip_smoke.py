@@ -280,8 +280,9 @@ qwen2-0.5b at full depth.
    source's greedy tokens.
 23. distributed: on a world-1 NCCL ``DeviceMesh`` (data=1, model=1) from
    ``launch.mesh.make_host_mesh`` (no CPU fallback: a group that fails
-   to start raises), full-width, full-depth granite-moe-1b-a400m+soft
-   trained 3 steps on batch 8 x 2048 (bf16 compute, telemetry off) from
+   to start raises), full-width granite-moe-1b-a400m+soft, its first 12
+   of 24 layers (``DIST_DEPTH``: the state's disk round trips
+   paced the phase), trained 3 steps on batch 8 x 2048 (bf16 compute, telemetry off) from
    a ZeRO-1 state (``init_train_state(zero1=True)``: bf16 compute
    params, f32 master and moments) placed by ``state_shardings`` through
    the sharded step (``jit_train_step``), beside 3 steps of the plain f32
@@ -289,7 +290,7 @@ qwen2-0.5b at full depth.
    each, every loss and their differences; each ZeRO-1 loss bitwise equal
    to ``loss_fn`` at the bf16 cast of the master it started from, the
    compute params bitwise the master's cast after every step, and K1,
-   K2, K4 and K5 launched 48, 48, 24 and 24 times a step (these go into
+   K2, K4 and K5 launched 24, 24, 12 and 12 times a step (these go into
    the kernels line). Then ``pod_allreduce_compressed`` over the model's
    gradient tree on a (pod=1, data=1, model=1) mesh: within scale/2 of
    the input element by element (plus f32 rounding), the new residual
@@ -316,6 +317,31 @@ qwen2-0.5b at full depth.
    the analytic roofline of one wave decode step beside its p50, and
    phase 10's granite+soft step as a share of the bf16 peak in model
    FLOPs and in analytic FLOPs; last, the dry-runs' terms.
+25. analysis and examples: the contract linter (``repro_torch.analysis``)
+   on the card with the real kernels. The Soft-MoE grad program at
+   soft-moe-b/16-128e's layer (b 64, m 196, d 768, S 128, d_ff 3072,
+   bf16) is recorded once: no (m x S) plane forward or backward, K1, K2,
+   K4 and K5 launched once each, each held against its plain version on
+   the arguments the path gave it (f32 outputs within 1e-5 of max|ref|,
+   bf16 within one bf16 step + 1e-5 of max|ref|); its einsum twin is
+   flagged for the (64, 196, 128, 1) weights; its ops outside the
+   kernels equal, as a multiset, the CPU recording of the same program
+   (the kernels' plain versions, each wrapper one op), which a host-only
+   subprocess makes. Every serving program of full-width
+   qwen2-0.5b (batch 8, max_len 2048, block 16, K7 on) through the four
+   program passes: clean but the allowlisted findings (paged verify and
+   prefill_chunk gather the row view, the sampler's buffer, the block
+   list's length), K7 once a layer. The five ``examples/torch/`` twins
+   in process on ``cuda``: ``train_vit_softmoe --steps 3 --use-kernel``
+   (finite losses, K1/K2/K4/K5 18 each), ``quickstart``, ``serve_lm
+   --paged`` (every request finishes, K7 = decode calls x layers),
+   ``serve_async --paged --trace --metrics-port 0`` (8 streams, /metrics
+   scraped), ``contrastive_lit --steps 25`` (its loss falls). Last,
+   ``python -m repro_torch.analysis --all --device cpu``, a host-only
+   subprocess started with the CPU recording before phase 23 (so both
+   run beside phases 23-25; 180 s from phase 25's end of card work),
+   must print ``analysis: PASS``. These launches go into the kernels
+   line.
 
 Each phase logs its wall time. The lines before the last carry the
 numbers: the card line as
@@ -5443,13 +5469,18 @@ def _whole(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
+# phase 23 trains granite-moe-1b-a400m+soft's first 12 of 24 layers
+DIST_DEPTH = 12
+
+
 def phase_distributed(torch, card):
-    """ZeRO-1 training of granite-moe-1b-a400m+soft at full width and
-    depth through the sharded step on a (data=1, model=1) NCCL mesh
+    """ZeRO-1 training of granite-moe-1b-a400m+soft at full width, depth
+    cut to ``DIST_DEPTH``, through the sharded step on a (data=1, model=1) NCCL mesh
     beside the plain f32 step, the all-to-all MoE layer at granite's
     expert width, the int8 compressed pod reduce over the model's
     gradients and the elastic restore of the ZeRO-1 state. Returns the
     K1, K2, K4 and K5 launches of the ZeRO-1 steps."""
+    import dataclasses
     import shutil
 
     import torch.distributed as dist
@@ -5495,7 +5526,10 @@ def phase_distributed(torch, card):
                combine_bwd, routing_health)
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("granite-moe-1b-a400m+soft")
+    # depth cut (DIST_DEPTH): the checkpoint round trips' disk time
+    # follows the state's size
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m+soft"),
+                              num_layers=DIST_DEPTH)
     n_moe = len(cfg.moe_layer_indices())
     batch, seq, n_steps = 8, 2048, 3
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
@@ -5514,8 +5548,8 @@ def phase_distributed(torch, card):
     mesh = make_host_mesh()  # NCCL, (data=1, model=1); raises if it fails
     log(f"[dist] {card}: process group {dist.get_backend()} world "
         f"{dist.get_world_size()}, mesh {mesh.mesh_dim_names} "
-        f"{tuple(mesh.shape)}; {cfg.name}, batch {batch} x {seq}, "
-        f"telemetry off, {n_steps} steps each")
+        f"{tuple(mesh.shape)}; {cfg.name} ({depth_note(cfg)}), batch "
+        f"{batch} x {seq}, telemetry off, {n_steps} steps each")
 
     def run(step, state):
         torch.cuda.synchronize()
@@ -5984,6 +6018,341 @@ def _get(tree, path):
     return tree
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the contract linter and the example twins
+# ---------------------------------------------------------------------------
+
+# soft-moe-b/16-128e's Soft-MoE layer at the ViT phases' batch
+B16_LAYER = dict(b=64, m=196, d=768, n=128, d_ff=3072, style="classic",
+                 act="gelu")
+TWINS = ("train_vit_softmoe", "quickstart", "serve_lm", "serve_async",
+         "contrastive_lit")
+
+
+def op_key(op):
+    """A recorded op as JSON-able data: name, input and output
+    (shape, dtype)."""
+    def sig(ts):
+        return [[list(shape), str(dt)] for shape, dt in ts]
+
+    return [op.name, sig(op.inputs), sig(op.outputs)]
+
+
+def print_b16_recording():
+    """Host-only: record the kernel-path Soft-MoE grad program at B/16's
+    layer on the CPU (the kernels' plain versions, each wrapper one op)
+    and print its ops as one JSON line."""
+    import torch
+
+    from repro_torch.analysis import kernel_program_specs
+
+    t0 = time.perf_counter()
+    spec = kernel_program_specs(device="cpu", dtype=torch.bfloat16,
+                                **B16_LAYER)[0]
+    ops = [op_key(op) for op in spec.ops()]
+    print(json.dumps({"ops": ops, "seconds": time.perf_counter() - t0}),
+          flush=True)
+
+
+def start_host_analysis():
+    """Start the host-only halves of phase 25 as subprocesses that see no
+    card: the CPU linter over the whole grid and the CPU recording of the
+    B/16 grad program."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    runs = {
+        "cli": ([sys.executable, "-m", "repro_torch.analysis", "--all",
+                 "--device", "cpu"], "2"),
+        "b16": ([sys.executable, "-c",
+                 "import chip_smoke as c; c.print_b16_recording()"], "4"),
+    }
+    return {name: subprocess.Popen(
+        cmd, cwd=ROOT, env=dict(env, OMP_NUM_THREADS=threads),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, (cmd, threads) in runs.items()}
+
+
+def finish_host_analysis(procs, timeout=180):
+    """Each subprocess's stdout, waiting at most ``timeout`` seconds (from
+    this call) for all of them; a run that fails raises."""
+    deadline = time.perf_counter() + timeout
+    out = {}
+    for name, p in procs.items():
+        try:
+            stdout, stderr = p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"host analysis {name} ran past {timeout} s")
+        if p.returncode != 0:
+            raise AssertionError(f"host analysis {name} failed (rc "
+                                 f"{p.returncode}): {stdout[-2000:]} "
+                                 f"{stderr[-2000:]}")
+        out[name] = stdout
+    return out
+
+
+def stop_host_analysis(procs):
+    """Kill and reap every host analysis still running."""
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def load_twin(name):
+    """One ``examples/torch/`` twin as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"twin_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def hold_path_kernels(torch, spec):
+    """Run ``spec``'s program once more, keeping a copy of each kernel
+    call's arguments, and hold each kernel against its plain version on
+    those arguments: f32 outputs within 1e-5 of max|ref|, bf16 outputs
+    within one bf16 step (2^-7 |ref|) + 1e-5 max|ref|, elementwise.
+    Returns {kernel: max abs error}; these launches are not counted."""
+    from repro_torch.analysis.framework import OpRecorder, _copy_args
+    from repro_torch.kernels import soft_moe_kernels as sk
+
+    calls = []
+
+    class Keep(OpRecorder):
+        def kernel_call(self, name, fn, args, kwargs):
+            calls.append((name, fn, _copy_args(args), kwargs))
+            return super().kernel_call(name, fn, args, kwargs)
+
+    with Keep():
+        spec.fn(*spec.args)
+    errs = {}
+    for name, fn, args, kwargs in calls:
+        kept = getattr(sk, name).launches
+        with torch.no_grad():  # the backward's saved tensors need grad
+            got = fn(*args, **kwargs)
+            want = getattr(sk, f"{name}_ref")(*args, **kwargs)
+        getattr(sk, name).launches = kept
+        flat = torch.utils._pytree.tree_leaves
+        for g, w in zip(flat(got), flat(want)):
+            diff = (g.float() - w.float()).abs()
+            top = w.float().abs().max()
+            if g.dtype == torch.float32:
+                ok = bool(diff.max() <= 1e-5 * top)
+            else:
+                ok = bool((diff <= 2.0**-7 * w.float().abs()
+                           + 1e-5 * top).all())
+            errs[name] = max(errs.get(name, 0.0), diff.max().item())
+            if not ok or not torch.isfinite(g).all():
+                raise AssertionError(f"{name} at the path's inputs "
+                                     f"disagrees with its plain version: "
+                                     f"{diff.max().item():.3e}")
+    return errs
+
+
+def phase_analysis_examples(torch, card, procs=None):
+    """The contract linter on the card with the real kernels and the five
+    example twins on ``cuda``; the CPU linter and the CPU recording of the
+    B/16 program run meanwhile as host-only subprocesses (``procs``:
+    ``start_host_analysis()``'s, started earlier by the caller so that
+    they overlap earlier phases too; None starts them here). Returns the
+    kernels' launches of the linted programs and of the twins."""
+    import math
+    import tempfile
+
+    from repro_torch.analysis import (
+        DEFAULT_ALLOWLIST,
+        kernel_program_specs,
+        run_passes,
+        serving_program_specs,
+    )
+    from repro_torch.analysis.passes import materialization_pass
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import soft_moe_kernels as sk
+    from repro_torch.kernels.paged_attention import paged_decode_attend
+
+    kernels = {name: getattr(sk, name) for name in (
+        "routing_fwd", "combine_apply", "combine_online", "dispatch_bwd",
+        "combine_bwd", "routing_health")}
+    kernels["paged_decode_attend"] = paged_decode_attend
+
+    def zero():
+        for f in kernels.values():
+            f.launches = 0
+
+    def counts():
+        return {n: f.launches for n, f in kernels.items()}
+
+    secs = {}
+    t_phase = time.perf_counter()
+    procs = procs or start_host_analysis()
+    try:
+        # (a) the Soft-MoE layer at B/16's shape, bf16: the kernel path's
+        # gradient forms no (m x S) plane; the einsum path's does
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero()
+        spec = kernel_program_specs(device="cuda", dtype=torch.bfloat16,
+                                    **B16_LAYER)[0]
+        t0 = time.perf_counter()
+        findings, n = materialization_pass([spec])
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        a_counts = counts()
+        interior = sorted({tuple(s) for op in spec.ops() if op.within
+                           for s in op.shapes()})
+        log(f"[analysis] {card}: kernels/soft_moe_grad at B/16's layer "
+            f"(b 64, m 196, d 768, S 128, d_ff 3072, bf16): "
+            f"{len(spec.ops())} ops recorded in {rec_s:.2f} s, "
+            f"{spec.forbid[0].label}: {'clean' if not findings else findings}"
+            f"; launches {a_counts}; kernel allocations {interior}")
+        want = {n_: 0 for n_ in kernels}
+        want.update(routing_fwd=1, combine_apply=1, dispatch_bwd=1,
+                    combine_bwd=1)
+        if n != 1 or findings or a_counts != want:
+            raise AssertionError("the kernel-path grad formed the (m x S) "
+                                 "plane or skipped a kernel")
+        errs = hold_path_kernels(torch, spec)
+        log(f"[analysis] {card}: K1/K2/K4/K5 at the path's inputs vs their "
+            f"plain versions (f32 1e-5 of max|ref|, bf16 one bf16 step + "
+            f"1e-5 of max|ref|): max abs err {errs}")
+        einsum = kernel_program_specs(device="cuda", dtype=torch.bfloat16,
+                                      use_kernel=False, **B16_LAYER)[0]
+        flagged, _ = materialization_pass([einsum])
+        log(f"[analysis] {card}: the einsum path at the same shape: "
+            f"{[f.message for f in flagged]}")
+        if len(flagged) != 1 or "(64, 196, 128, 1)" not in \
+                flagged[0].message:
+            raise AssertionError("the einsum path's (m x S) plane went "
+                                 "unflagged")
+        card_ops = [op_key(op) for op in spec.ops() if op.within is None]
+        del spec, einsum
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["B/16 grad"] = time.perf_counter() - t_phase
+
+        # (b) qwen2-0.5b at full width: batch 8, max_len 2048, block 16
+        zero()
+        specs = serving_program_specs("qwen2-0.5b", batch=8, max_len=2048,
+                                      block_size=16, device="cuda",
+                                      full_width=True)
+        t0 = time.perf_counter()
+        report = run_passes(specs, ["materialization", "retrace",
+                                    "donation", "dtype"], DEFAULT_ALLOWLIST)
+        torch.cuda.synchronize()
+        b_k7 = paged_decode_attend.launches
+        layers = get_config("qwen2-0.5b").num_layers
+        log(f"[analysis] {card}: qwen2-0.5b full width, {len(specs)} "
+            f"programs in {time.perf_counter() - t0:.2f} s, K7 launches "
+            f"{b_k7}:")
+        for line in report.render().splitlines():
+            log(f"[analysis]   {line}")
+        where = {(f.pass_name, f.where) for f in report.findings}
+        allowed = {(f.pass_name, f.where) for f in report.allowed}
+        if (not report.ok() or b_k7 != layers
+                or ("materialization", "paged/decode@qwen2-0.5b") in where
+                or allowed != {
+                    ("materialization", "paged/verify@qwen2-0.5b"),
+                    ("materialization", "paged/prefill_chunk@qwen2-0.5b"),
+                    ("donation", "engine/sample@qwen2-0.5b"),
+                    ("retrace", "paged/clear_blocks@qwen2-0.5b")}):
+            raise AssertionError("qwen2-0.5b's programs: a failure, the row "
+                                 "view in paged/decode, or K7 not once a "
+                                 "layer")
+        del specs, report
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs["qwen2 programs"] = time.perf_counter() - t_phase - sum(
+            secs.values())
+
+        # (c) the five twins, in process, on the card
+        twins = {name: load_twin(name) for name in TWINS}
+        zero()
+        with tempfile.TemporaryDirectory() as d:
+            out = twins["train_vit_softmoe"].main(
+                ["--steps", "3", "--use-kernel", "--ckpt-dir", d,
+                 "--device", "cuda"])
+        vit_counts = counts()
+        log(f"[examples] {card}: train_vit_softmoe --steps 3 --use-kernel: "
+            f"{out['model']}, losses {out['losses']}, launches {vit_counts}")
+        if (not out["losses"] or not all(map(math.isfinite, out["losses"]))
+                or any(vit_counts[k] != 18 for k in (
+                    "routing_fwd", "combine_apply", "dispatch_bwd",
+                    "combine_bwd"))):
+            raise AssertionError("the ViT twin: a non-finite loss or not "
+                                 "K1/K2/K4/K5 once a MoE layer a step")
+        out = twins["quickstart"].main(["--device", "cuda"])
+        log(f"[examples] {card}: quickstart: {out}")
+        if out["out_shape"] != (1, 196, 256) or not out["max_combine"] < 1:
+            raise AssertionError("quickstart")
+        zero()
+        out = twins["serve_lm"].main(["--paged", "--device", "cuda"])
+        lm_k7 = paged_decode_attend.launches
+        n_layers = reduced(get_config("qwen2-0.5b")).num_layers
+        log(f"[examples] {card}: serve_lm --paged: {out['finish_reasons']},"
+            f" {out['steps']} decode calls, {out['tokens']} tokens, K7 "
+            f"{lm_k7}")
+        if not all(out["done"]) or lm_k7 != out["steps"] * n_layers:
+            raise AssertionError("serve_lm: an unfinished request or K7 not "
+                                 "once a layer a decode call")
+        zero()
+        out = twins["serve_async"].main(["--paged", "--trace",
+                                         "--metrics-port", "0",
+                                         "--device", "cuda"])
+        async_k7 = paged_decode_attend.launches
+        streamed = [v for v in out["streams"].values() if v[0] == "streamed"]
+        log(f"[examples] {card}: serve_async --paged --trace --metrics-port "
+            f"0: {len(streamed)}/{len(out['streams'])} streamed, K7 "
+            f"{async_k7}, /metrics {len(out['metrics_text'])} B")
+        if (len(streamed) != 8 or async_k7 == 0
+                or "repro_serve_completed_total 8" not in
+                out["metrics_text"]):
+            raise AssertionError("serve_async: a request did not stream or "
+                                 "/metrics was not scraped")
+        out = twins["contrastive_lit"].main(["--steps", "25",
+                                             "--device", "cuda"])
+        log(f"[examples] {card}: contrastive_lit --steps 25: InfoNCE "
+            f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}")
+
+        secs["twins"] = time.perf_counter() - t_phase - sum(secs.values())
+        # (d) the host-only halves
+        host = finish_host_analysis(procs)
+        secs["waiting for the host"] = (time.perf_counter() - t_phase
+                                        - sum(secs.values()))
+    finally:
+        stop_host_analysis(procs)
+    cli = host["cli"].splitlines()
+    log(f"[analysis] host CPU: python -m repro_torch.analysis --all "
+        f"--device cpu:")
+    for line in cli:
+        if not line.startswith(("[ALLOWED]", "          reason", "[")):
+            log(f"[analysis]   {line}")
+    if "analysis: PASS" not in cli:
+        raise AssertionError("the CPU linter did not pass")
+    b16 = json.loads(host["b16"].splitlines()[-1])
+    cpu_ops = b16["ops"]
+    same = sorted(map(json.dumps, cpu_ops)) == sorted(map(json.dumps,
+                                                          card_ops))
+    log(f"[analysis] {card}: the B/16 grad program's recorded ops on the "
+        f"card (kernel allocations left out) vs on the CPU: {len(card_ops)}"
+        f" vs {len(cpu_ops)} (the CPU's in {b16['seconds']:.1f} s), equal "
+        f"as multisets: {same}")
+    log(f"[analysis] phase 25 wall seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    if not same:
+        diff = set(map(json.dumps, card_ops)) ^ set(map(json.dumps, cpu_ops))
+        raise AssertionError(f"card and CPU recordings differ: "
+                             f"{sorted(diff)[:10]}")
+    launches = {k: a_counts[k] + vit_counts[k] for k in (
+        "routing_fwd", "combine_apply", "dispatch_bwd", "combine_bwd")}
+    launches["paged_decode_attend"] = b_k7 + lm_k7 + async_k7
+    return launches
+
+
 def timed(fn, *args):
     """Run one phase and log its wall time."""
     t0 = time.perf_counter()
@@ -6024,11 +6393,19 @@ def main():
         timed(phase_seamless_train, torch, card)
         launches["paged_decode_attend"] += timed(
             phase_serving_stack, torch, card)["paged_decode_attend"]
-        for name, n in timed(phase_distributed, torch, card).items():
-            launches[name] += n
-        launches["paged_decode_attend"] += timed(
-            phase_wave_roofline, torch, card, soft_summary)[
-                "paged_decode_attend"]
+        # phase 25's host-only halves run beside phases 23 and 24
+        host = start_host_analysis()
+        try:
+            for name, n in timed(phase_distributed, torch, card).items():
+                launches[name] += n
+            launches["paged_decode_attend"] += timed(
+                phase_wave_roofline, torch, card, soft_summary)[
+                    "paged_decode_attend"]
+            for name, n in timed(phase_analysis_examples, torch, card,
+                                 host).items():
+                launches[name] += n
+        finally:
+            stop_host_analysis(host)
         log(f"[phase] all phases: {time.perf_counter() - t0:.1f} s wall")
     except Exception as e:  # noqa: BLE001 — report which phase failed
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr,

@@ -108,7 +108,8 @@ def soft_moe_apply(params, moe_cfg, x, act: str = "silu",
     if moe_cfg.num_shared_experts:
         # one leading-1 expert axis, broadcast by experts_apply
         sh = experts_apply(params["shared"], x.reshape(1, b * m, d), act)
-        y = y + sh.sum(0).reshape(b, m, d)
+        # the shared experts' sum accumulates in f32, as jnp.sum does
+        y = y + sh.sum(0, dtype=torch.float32).to(sh.dtype).reshape(b, m, d)
 
     metrics = {"moe_aux_loss": torch.zeros((), device=x.device)}
     # max combine weight: values near 1 signal the softmax collapse the L2

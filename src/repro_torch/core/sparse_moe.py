@@ -200,7 +200,9 @@ def tokens_choice_apply(params, moe_cfg, x, act: str = "silu",
     if moe_cfg.num_shared_experts:
         # one leading-1 expert axis, broadcast by experts_apply
         sh = experts_apply(params["shared"], x.reshape(1, b * m, d), act)
-        y = y + sh.sum(0).reshape(b, m, d).to(x.dtype)
+        # the shared experts' sum accumulates in f32, as jnp.sum does
+        sh = sh.sum(0, dtype=torch.float32).to(sh.dtype)
+        y = y + sh.reshape(b, m, d).to(x.dtype)
 
     aux = _aux_losses(logits, probs, expert_index, e, moe_cfg)
     # per-row fully-dropped token fraction (b,); the scalar is its mean

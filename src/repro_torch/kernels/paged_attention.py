@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from .recording import kernel_op
 from .tuning import KernelConfig, paged_config, paged_split_tiles
 
 _NEG = -1e30
@@ -149,6 +150,7 @@ def _launcher():
     return fn
 
 
+@kernel_op("paged_decode_attend")
 def paged_decode_attend(q, k_pool, v_pool, pos_pool, tables, q_pos, *,
                         causal: bool = True, window: Optional[int] = None,
                         is_global: bool = True,

@@ -57,6 +57,7 @@ from typing import Optional
 
 import torch
 
+from .recording import kernel_op
 from .tuning import (
     BWD_TILES,
     SOFT_MOE_TILE,
@@ -525,6 +526,7 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+@kernel_op("routing_fwd")
 def routing_fwd(x, phi_n, cfg: Optional[KernelConfig] = None):
     """K1: x (b, m, d) f32 or bf16; phi_n (d, S) f32 pre-normalized.
 
@@ -597,6 +599,7 @@ def _combine_cuda(x, phi_n, ys, c_stats, cfg):
     return (y, c_stats) if online else y
 
 
+@kernel_op("combine_apply")
 def combine_apply(x, phi_n, ys, c_stats, cfg: Optional[KernelConfig] = None):
     """K2: y = C Ys (b, m, d) in x's dtype, with C from K1's per-token
     ``c_stats = (c_mx, c_den)``, each (b, m) f32. CPU tensors run
@@ -618,6 +621,7 @@ def combine_apply(x, phi_n, ys, c_stats, cfg: Optional[KernelConfig] = None):
 combine_apply.launches = 0
 
 
+@kernel_op("combine_online")
 def combine_online(x, phi_n, ys, cfg: Optional[KernelConfig] = None):
     """K3: ``(y (b, m, d), (c_mx, c_den) (b, m))`` with an online softmax
     over 128-slot tiles. CPU tensors run ``combine_online_ref``; CUDA
@@ -673,6 +677,7 @@ def _dispatch_bwd_cuda(x, phi_n, g_slots, d_stats, slots, cfg):
     return dx, dphi
 
 
+@kernel_op("dispatch_bwd")
 def dispatch_bwd(x, phi_n, g_slots, d_stats, slots,
                  cfg: Optional[KernelConfig] = None):
     """K4: ``(dx (b, m, d) in x's dtype, dphi_n (d, S) f32)``, the
@@ -722,6 +727,7 @@ def _combine_bwd_cuda(x, phi_n, ys, g, c_stats, y, cfg):
     return dx, dphi, dys
 
 
+@kernel_op("combine_bwd")
 def combine_bwd(x, phi_n, ys, g, c_stats, y,
                 cfg: Optional[KernelConfig] = None):
     """K5: ``(dx (b, m, d) in x's dtype, dphi_n (d, S) f32, dys (b, S, d)
@@ -747,6 +753,7 @@ def combine_bwd(x, phi_n, ys, g, c_stats, y,
 combine_bwd.launches = 0
 
 
+@kernel_op("routing_health")
 def routing_health(x, phi_n, d_stats, c_stats,
                    cfg: Optional[KernelConfig] = None):
     """K6: ``(disp_entropy (b, S), importance (b, S), comb_entropy (b, m),

@@ -196,7 +196,9 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
         new_master, opt, opt_metrics = adamw_update(
             grads, state["opt"], master, opt_cfg)
         del grads
-        state["opt"] = opt
+        # AdamW updated the moments in place; the step counter advances in
+        # place too, so every leaf of the state keeps its storage
+        state["opt"]["step"].copy_(opt["step"])
         if "master" in state:  # ZeRO-1: cast the master back into the
             # compute params; under a mesh the master shards over data and
             # the compute params do not, so the cast (bf16) is gathered

@@ -1,8 +1,9 @@
-"""Rules of the port: nothing in ``src/repro_torch/`` or ``chip_smoke.py``
-imports jax or the JAX package; importing the port leaves jax unloaded;
-and asking for CUDA where torch sees no GPU raises instead of quietly
-running on the CPU."""
+"""Rules of the port: nothing in ``src/repro_torch/``, ``examples/torch/``
+or ``chip_smoke.py`` imports jax or the JAX package; importing the port
+leaves jax unloaded; and asking for CUDA where torch sees no GPU raises
+instead of quietly running on the CPU."""
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -13,8 +14,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path):
@@ -48,7 +49,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.optim.compression, repro_torch.roofline.flops, "
             "repro_torch.roofline.analysis, "
             "repro_torch.roofline.collectives, repro_torch.launch.specs, "
-            "repro_torch.launch.dryrun, repro_torch.launch.hillclimb; "
+            "repro_torch.launch.dryrun, repro_torch.launch.hillclimb, "
+            "repro_torch.analysis, repro_torch.analysis.passes, "
+            "repro_torch.analysis.programs, "
+            "repro_torch.analysis.__main__; "
             "import torch.distributed as dist; "
             "assert not dist.is_initialized(); "
             "bad = sorted(m for m in sys.modules "
@@ -127,6 +131,39 @@ def test_cuda_request_without_a_gpu_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SyntheticSeq2Seq(vocab_size=16, seq_len=4, num_frames=2,
                          frame_dim=3, batch_size=2)
+
+
+def test_linter_and_example_twins_refuse_cuda_without_a_gpu():
+    """``python -m repro_torch.analysis`` and the five ``examples/torch/``
+    twins run on the card by default; asked for it on a machine without
+    one, each raises before it builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("torch sees a GPU here; the rule is about machines "
+                    "without one")
+    from repro_torch.analysis.__main__ import main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--all", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "qwen2-0.5b"])  # the default device
+    twins = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert [p.stem for p in twins] == [
+        "contrastive_lit", "quickstart", "serve_async", "serve_lm",
+        "train_vit_softmoe"]
+    for path in twins:
+        spec = importlib.util.spec_from_file_location(
+            f"rules_{path.stem}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        for argv in (["--device", "cuda"], []):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                mod.main(argv)
+    # the CLI as a process, too
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "--all", "--device", "cuda"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and "no CUDA device" in res.stderr
 
 
 def test_unported_engine_options_raise():
