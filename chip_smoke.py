@@ -73,6 +73,24 @@ prints no result line):
    bound, its plain version and the einsum path of the same reductions
    (no single PyTorch call computes them), with the device time of each
    launch of a call (norm pre-pass, main kernel, merge).
+6b. invariant contraction: the fixed-order f32 product
+   (``kernels/invariant_matmul.py``, ``csrc/invariant_matmul.cu``; no
+   Pallas counterpart) that makes sparse MoE and MLA serving batch
+   invariant: ``router_logits`` at granite-moe-1b-a400m's router (d
+   1024, e 32) and deepseek-v2-lite's (d 2048, e 64) and
+   ``batched_contract`` at MLA decode's two attention products (the
+   probe's 64 keys and the served 2048), rows M in {1, 4, 8, 256, 2048}
+   (at 2048 keys {1, 4, 8}): each within 1e-6 of max|ref| of its plain
+   einsum, row 0 of every launch bitwise the 1-row launch (the plain
+   einsum's own row 0 against its 1-row call logged beside it),
+   malformed operands raise; then its time (L2 flushed, median of 30)
+   beside the plain einsum, one cuBLAS call (``torch.matmul`` /
+   ``torch.bmm``) and its bound, from decode rows to training's 16384,
+   and MLA prefill's products against the 2048-key view (a 32-token
+   chunk, a 256-token chunk and a 2048-token forward: 512, 4096 and 32768
+   rows), each held within 1e-6 of max|ref| of the f64 product with its
+   row 0 bitwise the 1-row launch; and the back-to-back cost of a call
+   at granite's decode router beside the einsum's and ``torch.matmul``'s.
 The serving phases 7, 12-14, 17, 19 and 22 are host bound, so they serve
 their models at full width with the depth cut (``SERVE_DEPTH``: the first
 8 of qwen2-0.5b's and granite's 24 layers, 9 of deepseek's 27, 10 of
@@ -153,14 +171,17 @@ qwen2-0.5b at full depth.
    MoE layer's routing keys are present and finite in
    ``telemetry_snapshot()``, the sparse ``dropped_fraction`` is 0
    (dropless), and greedy tokens with telemetry on equal those with it
-   off; decode step p50 and tok/s on and off; ``batch_variance_probe``
-   (batch 4) on both granite configs, qwen2-0.5b and the sparse config
-   through the ``batch_coupled`` hatch, which must read more than the
-   default sparse config (the card's readings are recorded, not bounded);
-   and its bisection on the sparse config (``batch_variance_bisect``):
-   the target row alone and co-batched at its first decode step, every
-   layer's intermediates compared in call order, the greedy tokens of
-   both runs, and the differing ops alone at the step's shapes.
+   off; decode step p50 and tok/s on and off; ``router_logits`` launches
+   once a sparse MoE layer a model call (never on +soft);
+   ``batch_variance_probe`` (batch 4) on both granite configs and
+   qwen2-0.5b, each below 1e-5 (the reference's contract), and on the
+   sparse config through the ``batch_coupled`` hatch, which must read
+   more than the default sparse config; and its bisection on the sparse
+   config (``batch_variance_bisect``): the target row alone and
+   co-batched at its first decode step, every layer's intermediates
+   compared in call order, the greedy tokens of both runs, and the ops
+   alone at the step's shapes (the products the fixed-order kernel took
+   over, as the kernel and as the einsum it replaced).
 13. mla serve: full-width deepseek-v2-lite-16b (MLA, layer 0 dense, the
    next 8 of its 26 Tokens Choice layers of top-6 of 64 experts + 2 shared;
    random weights drawn layer by layer and cast to the serving dtypes as
@@ -171,8 +192,13 @@ qwen2-0.5b at full depth.
    then the paged engine (``telemetry=True``, phase 12's geometry and
    trace): every request finishes, K7 and K1-K6 launch 0 times (MLA
    decode gathers, as in the reference), dropped 0 in every MoE layer,
-   tokens with telemetry on == off; decode p50, tok/s and peak memory;
-   ``batch_variance_probe`` (batch 4, recorded) and its bisection.
+   tokens with telemetry on == off; ``router_logits`` once a MoE layer
+   and ``batched_contract`` 3 times an MLA layer a model call; decode
+   p50, TTFT p50, prefill-chunk p50, tok/s and peak memory;
+   ``batch_variance_probe`` (batch 4) below
+   1e-5 and its bisection, which also runs every product of
+   ``mla_apply`` alone (the bf16 projections, ``w_uk``, the scores, the
+   weighted latent, ``w_uv``) and the dense layer 0's MLP.
 14. vlm: full-width pixtral-12b, 10 of 40 layers (weights as in phase 13):
    ``lm_apply(embeds=)`` on 2 rows of 256 N(0, 1) patch embeddings + 256
    tokens under ``torch.inference_mode()``: finite logits of shape (2,
@@ -225,8 +251,9 @@ qwen2-0.5b at full depth.
    (8 x 2048 positions reserved) and peak memory of both; the two
    engines teacher forced within 5e-2 of max|ref| with the share of
    equal greedy tokens; a profiled window and ``batch_variance_probe``
-   (batch 4) on the contiguous backend. Then full-width hymba-1.5b (16
-   layers) in f32 on the contiguous engine (prefill chunks of 32), teacher forced
+   (batch 4) on the contiguous backend, below 1e-5. Then full-width
+   hymba-1.5b (16 layers) in f32 on the contiguous engine (prefill
+   chunks of 32), teacher forced
    within 1e-4 of max|ref|: phase 17's 8 short prompts against the paged
    gather engine, and its 1200-token prompt, which wraps the local
    layers' 1024-slot rings, against the same engine on the host CPU (the
@@ -300,7 +327,9 @@ qwen2-0.5b at full depth.
    save and restore GB/s. Last, ``make_a2a_moe`` at granite's expert
    width (E 32, top-8, d 1024, ff 512, SwiGLU; one layer of the
    as-configured model's router and experts, 16384 f32 tokens) against
-   the dense dropless top-k within 1e-3 of max|ref|, and its time.
+   the dense dropless top-k within 1e-3 of max|ref|, and its time; its
+   router launches ``router_logits`` once a call (these join the kernels
+   line).
 24. wave and roofline: the dry-runs of qwen2-0.5b (``train_4k`` on 256
    fake ranks, again on 512 with ``--multi-pod``, and ``decode_32k``)
    start as host-only subprocesses (no card, 180 s limit, each must
@@ -371,6 +400,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
+# the reference's bound on batch_variance_probe for every served arch
+# (src/repro/serve/telemetry.py, enforced by its serve benchmark)
+PROBE_LIMIT = 1e-5
 
 KERNEL_SOURCES = {
     "paged_decode_attend": {
@@ -407,6 +439,17 @@ KERNEL_SOURCES = {
         "route": "cuda",
         "source": "src/repro_torch/csrc/soft_moe_routing_health.cu",
         "replaces": "src/repro/kernels/soft_moe_kernels.py:294",
+    },
+    # no Pallas counterpart: the reference's XLA einsums these replace
+    "router_logits": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/invariant_matmul.cu",
+        "replaces": "src/repro/core/sparse_moe.py:53",
+    },
+    "batched_contract": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/invariant_matmul.cu",
+        "replaces": "src/repro/layers/attention.py:121",
     },
 }
 
@@ -1837,6 +1880,261 @@ def phase_routing_health(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: the fixed-order f32 contraction (batch-invariant serving)
+# ---------------------------------------------------------------------------
+
+
+# (arch, d_model, experts) of the two sparse routers that phases 12-13
+# serve, and the row counts the kernel is held and timed at: decode
+# batches, a prefill chunk, a long prompt (and training's 8 x 2048 rows)
+INVARIANT_ROUTERS = (("granite-moe-1b-a400m", 1024, 32),
+                     ("deepseek-v2-lite-16b", 2048, 64))
+INVARIANT_ROWS = (1, 4, 8, 256, 2048)
+
+
+def contract_bound(n, p, k, q, b_shared=False):
+    """(ms, "bytes" | "operations") of an (n, p, k) x (n | 1, k, q) f32
+    product: each input read once and the output written once at the
+    HBM rate, against 2 n p k q operations at the f32 rate."""
+    nbytes = 4 * (n * p * k + (1 if b_shared else n) * k * q + n * p * q)
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = 2 * n * p * k * q / F32_FLOPS * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def mla_attend_operands(torch, gen, n, t, h=16, dk=576, dv=512):
+    """MLA's two products over the latent view as ``layers.attention.
+    _attend`` (one KV group) hands them to the kernel: the scores (n, h,
+    dk) x keys (n, dk, t) (a transposed view of the (n, t, dk) latent +
+    rope keys) and the weights (n, h, t) x values (n, t, dv) (the
+    latent), for h rows a matrix (the heads of a decode step, or the
+    heads x tokens of a prefill chunk); the inputs are bf16 values
+    widened to f32, as served."""
+    q = torch.randn(n, h, dk, generator=gen, device="cuda").bfloat16().float()
+    k = torch.randn(n, t, dk, generator=gen, device="cuda").bfloat16().float()
+    v = k[..., :dv].contiguous()
+    w = torch.softmax(torch.randn(n, h, t, generator=gen, device="cuda"), -1)
+    return (q, k.transpose(1, 2)), (w, v)
+
+
+def invariance_case(torch, fn, ref, many, one, label):
+    """``fn`` on the M-row (or n-matrix) operands ``many`` against its
+    plain version ``ref`` and against f64, and its row 0 against the
+    1-row launch ``one``, bitwise; cuBLAS's plain einsum's row 0 against
+    its own 1-row call beside it. Returns (max abs err, max|ref|)."""
+    out = fn(*many)
+    torch.cuda.synchronize()
+    want = ref(*many)
+    exact = ref(*(t.double() for t in many))
+    err = (out - want).abs().max().item()
+    err64 = (out.double() - exact).abs().max().item()
+    mag = want.abs().max().item()
+    solo = fn(*one)
+    bitwise = torch.equal(out[:1], solo)
+    plain_moved = int((want[:1] != ref(*one)).sum())
+    ok = err <= 1e-6 * mag and bitwise and bool(torch.isfinite(out).all())
+    log(f"[invariant] {label}: max_abs_err vs plain {err:.3e} (vs f64 "
+        f"{err64:.3e}; max|ref| {mag:.3e}; tol 1e-6 max|ref|) row 0 == "
+        f"1-row launch bitwise: {bitwise}; the plain einsum's row 0 vs its "
+        f"1-row call: {plain_moved} of {solo.numel()} elements differ")
+    if not ok:
+        raise AssertionError(f"invariant_matmul {label} failed")
+    return err, mag
+
+
+def phase_invariant_kernels(torch):
+    """The fixed-order f32 contraction (``kernels/invariant_matmul.py``,
+    ``csrc/invariant_matmul.cu``) at the sparse routers' and MLA decode's
+    shapes: against its plain version, row 0 of every launch bitwise the
+    1-row launch, malformed operands refused, and its time beside cuBLAS
+    and its bound."""
+    from repro_torch.kernels.invariant_matmul import (
+        batched_contract,
+        batched_contract_ref,
+        router_logits,
+        router_logits_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    errs = {"router_logits": 0.0, "batched_contract": 0.0}
+    for arch, d, e in INVARIANT_ROUTERS:
+        w = torch.randn(d, e, generator=gen, device="cuda") / d ** 0.5
+        x = torch.randn(max(INVARIANT_ROWS), 1, d, generator=gen,
+                        device="cuda")
+        for m in INVARIANT_ROWS:
+            err, _ = invariance_case(
+                torch, router_logits, router_logits_ref, (x[:m], w),
+                (x[:1], w), f"router_logits {arch} (M={m}, 1, d={d}) x "
+                f"({d}, {e})")
+            errs["router_logits"] = max(errs["router_logits"], err)
+    # MLA decode: the probe's 64 keys up to 2048 rows, the served 2048
+    # keys at decode batches
+    for t, ns in ((64, INVARIANT_ROWS), (2048, (1, 4, 8))):
+        for n in ns:
+            scores, values = mla_attend_operands(torch, gen, n, t)
+            for kind, ops in (("scores", scores), ("values", values)):
+                err, _ = invariance_case(
+                    torch, batched_contract, batched_contract_ref, ops,
+                    tuple(o[:1] for o in ops), f"batched_contract MLA "
+                    f"{kind} {tuple(ops[0].shape)} x {tuple(ops[1].shape)}")
+                errs["batched_contract"] = max(errs["batched_contract"], err)
+
+    # No fallback: malformed operands raise and launch nothing.
+    x, w = x[:4], torch.randn(1024, 32, generator=gen, device="cuda")
+    (qa, kb), _ = mla_attend_operands(torch, gen, 2, 64)
+    before = (router_logits.launches, batched_contract.launches)
+    for call, exc, why in (
+            (lambda: router_logits(x.bfloat16(), w.bfloat16()), TypeError,
+             "bf16 router operands"),
+            (lambda: router_logits(x[..., :1000], w), ValueError,
+             "router d 1000 against a (1024, 32) weight"),
+            (lambda: batched_contract(qa.double(), kb.double()), TypeError,
+             "f64 operands"),
+            (lambda: batched_contract(qa, kb[:, :500]), ValueError,
+             "k 576 against 500"),
+            (lambda: batched_contract(qa[0], kb[0]), ValueError, "2-D"),
+            (lambda: batched_contract(qa.clone().requires_grad_(), kb),
+             ValueError, "an operand that needs a gradient")):
+        try:
+            call()
+        except exc as err:
+            log(f"[invariant] malformed operands ({why}) raise "
+                f"{type(err).__name__}: {err}")
+        else:
+            raise AssertionError(f"malformed operands ({why}) did not raise")
+    if (router_logits.launches, batched_contract.launches) != before:
+        raise AssertionError("a malformed call launched the kernel")
+
+    # Times (L2 flushed, median of 30) beside the plain einsum, one
+    # cuBLAS call (torch.matmul / torch.bmm) and the bound
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    rows = {}
+    for arch, d, e in INVARIANT_ROUTERS:
+        w = torch.randn(d, e, generator=gen, device="cuda") / d ** 0.5
+        for m in (8, 256, 2048, 16384):
+            x = torch.randn(m, 1, d, generator=gen, device="cuda")
+            x2 = x.reshape(m, d)
+            ms = time_ms(torch, lambda: router_logits(x, w), flush=flush)
+            plain = time_ms(torch, lambda: router_logits_ref(x, w),
+                            flush=flush)
+            lib = time_ms(torch, lambda: torch.matmul(x2, w), flush=flush)
+            bound, by = contract_bound(1, m, d, e, b_shared=True)
+            rows[("router", arch, m)] = dict(ms=ms, plain_ms=plain,
+                                             library_ms=lib, bound_ms=bound,
+                                             bound_by=by)
+            log(f"[invariant] router_logits {arch} timing (M={m}, "
+                f"d={d}, e={e}, L2 flushed): kernel_ms={ms:.4f} "
+                f"plain_ms(einsum)={plain:.4f} library_ms(torch.matmul)="
+                f"{lib:.4f} bound={bound * 1e3:.3f} us ({by}); kernel/"
+                f"bound {ms / bound:.1f}x, kernel/library {ms / lib:.2f}x")
+    for t, n in ((2048, 8), (2048, 1), (64, 4)):
+        for kind, ops in zip(("scores", "values"),
+                             mla_attend_operands(torch, gen, n, t)):
+            a, b = ops
+            ms = time_ms(torch, lambda: batched_contract(a, b), flush=flush)
+            plain = time_ms(torch, lambda: batched_contract_ref(a, b),
+                            flush=flush)
+            lib = time_ms(torch, lambda: torch.bmm(a, b), flush=flush)
+            bound, by = contract_bound(n, a.shape[1], a.shape[2], b.shape[2])
+            rows[("contract", kind, n, t)] = dict(
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                bound_by=by)
+            log(f"[invariant] batched_contract MLA decode {kind} timing "
+                f"({tuple(a.shape)} x {tuple(b.shape)}, {t} keys, L2 "
+                f"flushed): kernel_ms={ms:.4f} plain_ms(einsum)={plain:.4f} "
+                f"library_ms(torch.bmm)={lib:.4f} bound={bound * 1e3:.3f} us "
+                f"({by}); kernel/bound {ms / bound:.1f}x, kernel/library "
+                f"{ms / lib:.2f}x")
+    # MLA prefill, one request against the 2048-key gathered view: the
+    # engine's 32-token chunk, a 256-token chunk, and a 2048-token
+    # forward that needs no gradient (its 32768 rows stay on the dense
+    # path below _CHUNKED_THRESHOLD): the kernel within 1e-6 of max|ref|
+    # of the f64 product (over millions of outputs two f32 orders, the
+    # kernel's and cuBLAS's, drift further apart than either from the
+    # exact sums: both are logged), its row 0 bitwise the 1-row launch,
+    # and its time
+    for s_q in (32, 256, 2048):
+        for kind, ops in zip(("scores", "values"), mla_attend_operands(
+                torch, gen, 1, 2048, h=16 * s_q)):
+            a, b = ops
+            out = batched_contract(a, b)
+            want = batched_contract_ref(a, b)
+            exact = batched_contract_ref(a.double(), b.double())
+            err = (out - want).abs().max().item()
+            err64 = (out.double() - exact).abs().max().item()
+            plain64 = (want.double() - exact).abs().max().item()
+            mag = exact.abs().max().item()
+            bitwise = torch.equal(out[:, :1], batched_contract(a[:, :1], b))
+            del out, want, exact
+            ms = time_ms(torch, lambda: batched_contract(a, b), flush=flush)
+            plain = time_ms(torch, lambda: batched_contract_ref(a, b),
+                            flush=flush)
+            lib = time_ms(torch, lambda: torch.bmm(a, b), flush=flush)
+            bound, by = contract_bound(1, a.shape[1], a.shape[2], b.shape[2])
+            log(f"[invariant] batched_contract MLA prefill {kind} "
+                f"({s_q} tokens x 16 heads: {tuple(a.shape)} x "
+                f"{tuple(b.shape)}, L2 flushed): max_abs_err vs f64 "
+                f"{err64:.3e} (the plain einsum's {plain64:.3e}; kernel vs "
+                f"plain {err:.3e}; max|ref| {mag:.3e}; tol 1e-6 max|ref| "
+                f"vs f64), row 0 == 1-row launch bitwise: {bitwise}; "
+                f"kernel_ms={ms:.4f} plain_ms(einsum)={plain:.4f} "
+                f"library_ms(torch.bmm)={lib:.4f} bound={bound * 1e3:.3f} "
+                f"us ({by}); kernel/bound {ms / bound:.1f}x, kernel/library "
+                f"{ms / lib:.2f}x, "
+                f"{2 * a.shape[1] * a.shape[2] * b.shape[2] / ms / 1e9:.2f} "
+                f"TFLOP/s")
+            if not (err64 <= 1e-6 * mag and bitwise):
+                raise AssertionError(f"batched_contract MLA prefill {kind} "
+                                     f"{tuple(a.shape)} failed")
+            errs["batched_contract"] = max(errs["batched_contract"], err)
+            del a, b, ops
+    # MLA's w_uv expansion at a decode step of 8 rows: one matrix a head
+    # over the rows, read through the views _latent_up hands the kernel
+    lat = torch.randn(8, 16, 512, generator=gen, device="cuda")
+    w_uv = torch.randn(512, 16, 128, generator=gen, device="cuda")
+    a, b = lat.transpose(0, 1), w_uv.permute(1, 0, 2)
+    ms = time_ms(torch, lambda: batched_contract(a, b), flush=flush)
+    plain = time_ms(torch, lambda: batched_contract_ref(a, b), flush=flush)
+    lib = time_ms(torch, lambda: torch.bmm(a, b), flush=flush)
+    bound, by = contract_bound(16, 8, 512, 128)
+    log(f"[invariant] batched_contract MLA decode w_uv timing ((16, 8, 512) "
+        f"x (16, 512, 128) strided views, L2 flushed): kernel_ms={ms:.4f} "
+        f"plain_ms(einsum)={plain:.4f} library_ms(torch.bmm)={lib:.4f} "
+        f"bound={bound * 1e3:.3f} us ({by}); kernel/bound "
+        f"{ms / bound:.1f}x, kernel/library {ms / lib:.2f}x")
+    # what a call costs a host-bound decode step: 200 calls back to back
+    # at granite's decode router (8 rows), synchronised once, so each
+    # reads the larger of its host cost and its device time
+    x8 = torch.randn(8, 1, 1024, generator=gen, device="cuda")
+    w8 = torch.randn(1024, 32, generator=gen, device="cuda")
+
+    def per_call_us(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    cost = {name: per_call_us(fn) for name, fn in (
+        ("router_logits", lambda: router_logits(x8, w8)),
+        ("einsum", lambda: router_logits_ref(x8, w8)),
+        ("torch.matmul", lambda: torch.matmul(x8, w8)))}
+    log("[invariant] back-to-back cost a call at granite's decode router "
+        "((8, 1, 1024) x (1024, 32), 200 calls, host clock): " + ", ".join(
+            f"{k} {v:.1f} us" for k, v in cost.items()))
+    # the kernels line: phase 12's decode (granite, 8 rows) and phase
+    # 13's (the scores over deepseek's 2048-key latent view, 8 rows)
+    return {
+        "router_logits": {"max_abs_err": errs["router_logits"],
+                          **rows[("router", "granite-moe-1b-a400m", 8)]},
+        "batched_contract": {"max_abs_err": errs["batched_contract"],
+                             **rows[("contract", "scores", 8, 2048)]},
+    }
+
+
+# ---------------------------------------------------------------------------
 # phase 7: serve full-width qwen2-0.5b
 # ---------------------------------------------------------------------------
 
@@ -1894,21 +2192,21 @@ def make_requests(np, vocab, seed=0):
     return prompts
 
 
-def timed_decode(torch, eng):
-    """Wrap ``eng``'s decode program so each call's synchronised host time
-    lands in the returned list."""
-    decode_s = []
-    inner = eng.backend.decode
+def timed_method(torch, obj, name):
+    """Wrap ``obj.<name>`` so each call's synchronised host time lands in
+    the returned list."""
+    times = []
+    inner = getattr(obj, name)
 
-    def decode(*a):
+    def call(*a, **kw):
         t0 = time.perf_counter()
-        out = inner(*a)
+        out = inner(*a, **kw)
         torch.cuda.synchronize()
-        decode_s.append(time.perf_counter() - t0)
+        times.append(time.perf_counter() - t0)
         return out
 
-    eng.backend.decode = decode
-    return decode_s
+    setattr(obj, name, call)
+    return times
 
 
 def run_engine(torch, eng, prompts, max_new):
@@ -1916,7 +2214,7 @@ def run_engine(torch, eng, prompts, max_new):
     seconds and the decode-step times."""
     from repro_torch.serve import Request
 
-    decode_s = timed_decode(torch, eng)
+    decode_s = timed_method(torch, eng.backend, "decode")
     reqs = [Request(prompt=list(p), max_new_tokens=max_new) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2174,7 +2472,7 @@ def phase_serve(torch, card):
     tf_geo = dict(geo, prefill_chunk=256)
     for trace, n_new in ((prompts, max_new), (burst, 48)):
         oracle = ServeEngine(cfg, params, use_kernel=False, **tf_geo)
-        times = timed_decode(torch, oracle)
+        times = timed_method(torch, oracle.backend, "decode")
         ticks += teacher_forced(torch, ServeEngine(cfg, params, **tf_geo),
                                 oracle, trace, n_new)
         odecode_s += times
@@ -3171,6 +3469,10 @@ def phase_moe_serve(torch, card):
 
     import numpy as np
 
+    from repro_torch.kernels.invariant_matmul import (
+        batched_contract,
+        router_logits,
+    )
     from repro_torch.kernels.paged_attention import paged_decode_attend
     from repro_torch.kernels.soft_moe_kernels import (
         combine_apply,
@@ -3183,6 +3485,8 @@ def phase_moe_serve(torch, card):
 
     soft_kernels = (routing_fwd, combine_apply, combine_online,
                     routing_health)
+    invariant = (router_logits, batched_contract)
+    path_launches = {"router_logits": 0, "batched_contract": 0}
     geo = dict(batch_size=8, max_len=2048, block_size=16, device="cuda",
                backend="paged")
     max_new = 16
@@ -3200,13 +3504,19 @@ def phase_moe_serve(torch, card):
         for telemetry in (True, False):
             eng = ServeEngine(cfg, params, telemetry=telemetry, **geo)
             paged_decode_attend.launches = 0
-            for k in soft_kernels:
+            for k in soft_kernels + invariant:
                 k.launches = 0
             reqs, wall, decode_s = run_engine(torch, eng, prompts, max_new)
             runs[telemetry] = (eng, reqs, wall, decode_s,
                                paged_decode_attend.launches,
-                               tuple(k.launches for k in soft_kernels))
-        eng, reqs, wall, decode_s, k7, soft_l = runs[True]
+                               tuple(k.launches for k in soft_kernels),
+                               tuple(k.launches for k in invariant))
+        eng, reqs, wall, decode_s, k7, soft_l, inv_l = runs[True]
+        inv_both = [a + b for a, b in zip(inv_l, runs[False][6])]
+        for k, n in zip(invariant, inv_both):
+            path_launches[k.__name__] += n
+        n_moe = len(cfg.moe_layer_indices())
+        sparse = cfg.moe.variant in ("tokens_choice", "experts_choice")
         done = all(r.done and r.finish_reason == "length"
                    for r in reqs)
         snap = eng.telemetry_snapshot()
@@ -3229,6 +3539,9 @@ def phase_moe_serve(torch, card):
             f"(decode_steps x "
             f"{cfg.num_layers} = {eng.decode_steps * cfg.num_layers}), "
             f"K1/K2/K3/K6 {soft_l} (0: serving runs the MoE einsum path); "
+            f"router_logits, batched_contract {tuple(inv_both)} over the "
+            f"telemetry on and off runs (the router once a sparse MoE layer "
+            f"a model call, {n_moe} layers; MLA's products 0: GQA); "
             f"telemetry keys {len(flat)} per decode call, finite {finite}, "
             f"MoE layers missing {key}: {missing}; decode "
             f"dropped_fraction max {max(dropped):.3g}; greedy tokens with "
@@ -3245,6 +3558,11 @@ def phase_moe_serve(torch, card):
         if any(soft_l) or missing or not finite or not same or \
                 any(v != 0.0 for v in dropped):
             raise AssertionError("MoE serving telemetry or parity failed")
+        if inv_both[1] or (inv_both[0] == 0) == sparse or \
+                inv_both[0] % n_moe:
+            raise AssertionError("router_logits must launch once a sparse "
+                                 "MoE layer a model call, and never on the "
+                                 "+soft config; batched_contract never")
         del runs, eng, reqs
         probes[name] = batch_variance_probe(cfg, params, [1, 2, 3, 4],
                                             batch_size=4, max_new_tokens=8,
@@ -3278,6 +3596,14 @@ def phase_moe_serve(torch, card):
             probes["granite-moe-1b-a400m"]["divergence"]:
         raise AssertionError("the escape hatch reads no more than the "
                              "default sparse config")
+    # the reference's contract (serve/telemetry.py): < 1e-5 on every
+    # served arch; the hatch is the one sanctioned finite reading
+    high = {k: r["divergence"] for k, r in probes.items()
+            if k != "hatch" and not r["divergence"] < PROBE_LIMIT}
+    if high:
+        raise AssertionError(f"batch_variance_probe >= {PROBE_LIMIT:g}: "
+                             f"{high}")
+    return path_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3295,12 +3621,22 @@ def batch_variance_bisect(torch, cfg, params, card, prompt=(1, 2, 3, 4),
     router logits, the routed and shared experts' outputs, the MoE
     layer's output) and compared; then both runs go on to the end and
     their greedy tokens are compared. Last, the ops that differ are run
-    alone at the step's shapes, row 0 of M rows against M = 1."""
+    alone at the step's shapes, row 0 of M rows against M = 1: the
+    products the port runs through the fixed-order kernel both as the
+    kernel and as the einsum they replace (so a log line names the op
+    the kernel fixed), and on MLA every product of ``mla_apply``."""
     from repro_torch.core import sparse_moe
+    from repro_torch.kernels.invariant_matmul import (
+        batched_contract,
+        router_logits,
+    )
+    from repro_torch.layers import attention
     from repro_torch.models import lm
     from repro_torch.serve import Request, ServeEngine
 
     hooks = ((lm, "attention_apply", "attn", lambda o: o[0]),
+             (attention, "_attend", "attend", lambda o: o),
+             (attention, "_latent_up", "w_uv", lambda o: o),
              (lm, "mlp_apply", "mlp", lambda o: o),
              (lm, "moe_apply", "moe", lambda o: o[0]),
              (sparse_moe, "_router_logits", "router", lambda o: o),
@@ -3349,10 +3685,14 @@ def batch_variance_bisect(torch, cfg, params, card, prompt=(1, 2, 3, 4),
         # row; expert outputs (e | 1, B x capacity 1, d) by buffer row
         return t[:, slot] if kind == "experts" else t[slot]
 
-    layer, rows, first_diff = -1, [], None
+    layer, rows, first_diff, prev = -1, [], None, None
     for (kind, a), (kind2, b) in zip(solo, cob):
         assert kind == kind2
-        layer += kind == "attn"
+        # a layer opens with its attention: MLA's inner attend, then the
+        # attention output
+        layer += kind == "attend" or (kind == "attn"
+                                      and prev not in ("attend", "w_uv"))
+        prev = kind
         diff = (target(kind, a, s1["slot"])
                 - target(kind, b, c1["slot"])).abs().max().item()
         rows.append(f"l{layer}:{kind}={diff:.3e}")
@@ -3362,7 +3702,7 @@ def batch_variance_bisect(torch, cfg, params, card, prompt=(1, 2, 3, 4),
         f"step alone (slot {s1['slot']}, {s1['rows']} active row) vs "
         f"co-batched (slot {c1['slot']}, {c1['rows']} active rows of "
         f"{batch}): {len(solo)} intermediates; first that differs: "
-        f"{first_diff}; max|diff| by layer and op: " + " ".join(rows[:40]))
+        f"{first_diff}; max|diff| by layer and op: " + " ".join(rows))
     same = solo_out == cob_out
     n_same = sum(a == b for a, b in zip(solo_out, cob_out))
     log(f"[bisect] {card}: {cfg.name}: greedy tokens alone == co-batched: "
@@ -3381,25 +3721,86 @@ def batch_variance_bisect(torch, cfg, params, card, prompt=(1, 2, 3, 4),
     x2 = torch.randn(batch, 1, d, generator=gen, device="cuda").bfloat16()
     router = layer_p["moe"]["router"].float()
     xf = x2.float()
+
+    def rows01(fn, *ops, batched=1):
+        """fn at M = batch (row 0) and at M = 1; the first ``batched``
+        ops have the rows, the rest (weights) are shared."""
+        return fn(*ops)[:1], fn(*(o[:1] if i < batched else o
+                                  for i, o in enumerate(ops)))
+
+    def ein(spec):
+        return lambda *ops: torch.einsum(spec, *ops)
+
     iso = {
         f"bmm ({e}, M, {d}) x {tuple(w_up.shape)} in bf16": (
             torch.matmul(xs, w_up)[:, :1], torch.matmul(xs[:, :1], w_up)),
-        f"einsum bsd,dhk (M, 1, {d}) x {tuple(wq.shape)} in bf16": (
-            torch.einsum("bsd,dhk->bshk", x2, wq)[:1],
-            torch.einsum("bsd,dhk->bshk", x2[:1], wq)),
-        f"router einsum gtd,de (M, 1, {d}) x {tuple(router.shape)} in f32":
-            (torch.einsum("gtd,de->gte", xf, router)[:1],
-             torch.einsum("gtd,de->gte", xf[:1], router)),
+        f"einsum bsd,dhk (M, 1, {d}) x {tuple(wq.shape)} in bf16": rows01(
+            ein("bsd,dhk->bshk"), x2, wq),
+        f"router einsum gtd,de (M, 1, {d}) x {tuple(router.shape)} in f32 "
+        f"(replaced)": rows01(ein("gtd,de->gte"), xf, router),
+        f"router_logits kernel (M, 1, {d}) x {tuple(router.shape)} in f32 "
+        f"(as served)": rows01(router_logits, xf, router),
     }
-    if "w_uk" in layer_p["attn"]:  # MLA's absorbed query, in f32
-        a = cfg.attention
-        w_uk = layer_p["attn"]["w_uk"].float()
-        qn = torch.randn(batch, 1, a.num_heads, a.qk_nope_head_dim,
-                         generator=gen, device="cuda")
-        iso[f"MLA einsum bshk,rhk (M, 1, {a.num_heads}, "
-            f"{a.qk_nope_head_dim}) x {tuple(w_uk.shape)} in f32"] = (
-            torch.einsum("bshk,rhk->bshr", qn, w_uk)[:1],
-            torch.einsum("bshk,rhk->bshr", qn[:1], w_uk))
+    if "w_uk" in layer_p["attn"]:  # every product of mla_apply
+        a, ap = cfg.attention, layer_p["attn"]
+        h, nope = a.num_heads, a.qk_nope_head_dim
+        r, rope, dv = a.kv_lora_rank, a.qk_rope_head_dim, a.v_head_dim
+        t = 64  # the probe's max_len: 4 blocks of 16 keys a row
+        bf = torch.bfloat16
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+
+        qn, lat = rnd(batch, 1, h, nope), rnd(batch, 1, h, r)
+        qcat = rnd(batch, 1, h, r + rope).to(bf).float()
+        kcat = rnd(batch, t, 1, r + rope).to(bf).float()
+        wts = torch.softmax(rnd(batch, 1, h, 1, t), -1)
+        vlat = kcat[..., :r]
+        o = rnd(batch, 1, h, dv).to(bf)
+        mla = {
+            f"wq einsum bsd,dhk {tuple(ap['wq'].shape)} in bf16": rows01(
+                ein("bsd,dhk->bshk"), x2, ap["wq"].to(bf)),
+            f"w_dkv einsum bsd,dr {tuple(ap['w_dkv'].shape)} in bf16":
+                rows01(ein("bsd,dr->bsr"), x2, ap["w_dkv"].to(bf)),
+            f"w_krope einsum bsd,dk {tuple(ap['w_krope'].shape)} in bf16":
+                rows01(ein("bsd,dk->bsk"), x2, ap["w_krope"].to(bf)),
+            f"w_uk einsum bshk,rhk (M, 1, {h}, {nope}) x "
+            f"{tuple(ap['w_uk'].shape)} in f32": rows01(
+                ein("bshk,rhk->bshr"), qn, ap["w_uk"].float()),
+            f"_attend scores einsum bsgrd,btgd (M, 1, 1, {h}, {r + rope}) "
+            f"x (M, {t}, 1, {r + rope}) in f32 (replaced)": rows01(
+                ein("bsgrd,btgd->bgrst"), qcat[:, :, None], kcat,
+                batched=2),
+            f"_attend scores batched_contract (M, {h}, {r + rope}) x (M, "
+            f"{r + rope}, {t}) in f32 (as served)": rows01(
+                batched_contract, qcat.reshape(batch, h, r + rope),
+                kcat[:, :, 0].transpose(1, 2), batched=2),
+            f"_attend values einsum bgrst,btgd (M, 1, {h}, 1, {t}) x (M, "
+            f"{t}, 1, {r}) in f32 (replaced)": rows01(
+                ein("bgrst,btgd->bsgrd"), wts, vlat, batched=2),
+            f"_attend values batched_contract (M, {h}, {t}) x (M, {t}, "
+            f"{r}) in f32 (as served)": rows01(
+                batched_contract, wts.reshape(batch, h, t), vlat[:, :, 0],
+                batched=2),
+            f"w_uv einsum bshr,rhv (M, 1, {h}, {r}) x "
+            f"{tuple(ap['w_uv'].shape)} in f32 (replaced)": rows01(
+                ein("bshr,rhv->bshv"), lat, ap["w_uv"].float()),
+            f"w_uv batched_contract ({h}, M, {r}) x ({h}, {r}, {dv}) in "
+            f"f32 (as served)": rows01(
+                attention._latent_up, lat, ap["w_uv"].float()),
+            f"wo einsum bshv,hvd (M, 1, {h}, {dv}) x "
+            f"{tuple(ap['wo'].shape)} in bf16": rows01(
+                ein("bshv,hvd->bsd"), o, ap["wo"].to(bf)),
+        }
+        iso.update({f"MLA {k}": v for k, v in mla.items()})
+    # the first layer's dense MLP, where the model has one (deepseek's
+    # layer 0), each product in bf16 on (M, 1, its input width) rows
+    for name, w in params["layers"][0].get("mlp", {}).items():
+        if w.ndim == 2:
+            xm = torch.randn(batch, 1, w.shape[0], generator=gen,
+                             device="cuda").bfloat16()
+            iso[f"layer 0 mlp {name} einsum bsd,df {tuple(w.shape)} in "
+                f"bf16"] = rows01(ein("bsd,df->bsf"), xm, w.bfloat16())
     for name, (many, one) in iso.items():
         diff = (many.float() - one.float()).abs()
         log(f"[bisect] {card}: alone, {name}, row 0 at M={batch} "
@@ -3560,6 +3961,10 @@ def phase_mla_serve(torch, card):
     in the reference), nor K1-K6."""
     import numpy as np
 
+    from repro_torch.kernels.invariant_matmul import (
+        batched_contract,
+        router_logits,
+    )
     from repro_torch.kernels.paged_attention import paged_decode_attend
     from repro_torch.kernels.soft_moe_kernels import (
         combine_apply,
@@ -3573,6 +3978,7 @@ def phase_mla_serve(torch, card):
 
     kernels = (paged_decode_attend, routing_fwd, combine_apply,
                combine_online, dispatch_bwd, combine_bwd, routing_health)
+    invariant = (router_logits, batched_contract)
     gc.collect()
     torch.cuda.empty_cache()
     check_serving_weights(torch)
@@ -3601,17 +4007,24 @@ def phase_mla_serve(torch, card):
     warm = ServeEngine(cfg, params, telemetry=True, **geo)
     run_engine(torch, warm, prompts[1:3], 4)
     del warm
-    runs = {}
+    runs, prefill = {}, {}
     for telemetry in (True, False):
         eng = ServeEngine(cfg, params, telemetry=telemetry, **geo)
-        for k in kernels:
+        for k in kernels + invariant:
             k.launches = 0
         torch.cuda.reset_peak_memory_stats()
+        chunk_s = timed_method(torch, eng.backend, "prefill_chunk")
         reqs, wall, decode_s = run_engine(torch, eng, prompts, max_new)
+        ttft = statistics.median(r.t_first_token - r.t_submit for r in reqs)
+        prefill[telemetry] = (ttft * 1e3, statistics.median(chunk_s) * 1e3,
+                              len(chunk_s))
         runs[telemetry] = (eng, reqs, wall, decode_s,
                            tuple(k.launches for k in kernels),
-                           torch.cuda.max_memory_allocated())
-    eng, reqs, wall, decode_s, launches, peak = runs[True]
+                           torch.cuda.max_memory_allocated(),
+                           tuple(k.launches for k in invariant))
+    eng, reqs, wall, decode_s, launches, peak, inv_l = runs[True]
+    inv_both = [a + b for a, b in zip(inv_l, runs[False][6])]
+    n_moe = len(cfg.moe_layer_indices())
     done = all(r.done and r.finish_reason == "length" for r in reqs)
     flat = eng.telemetry_snapshot().get("decode", {})
     missing = [i for i in cfg.moe_layer_indices()
@@ -3627,7 +4040,12 @@ def phase_mla_serve(torch, card):
     log(f"[mla] {cfg.name}: {len(reqs)} requests done={done}, "
         f"{eng.decode_steps} decode steps; launches K7 {launches[0]} "
         f"(0: MLA decode gathers), K1-K6 {launches[1:]} (0: serving runs "
-        f"the MoE einsum path); {len(flat)} telemetry keys a decode call, "
+        f"the MoE einsum path); router_logits {inv_both[0]} (once a MoE "
+        f"layer a model call, {n_moe} layers), batched_contract "
+        f"{inv_both[1]} (MLA's scores, weighted latent and w_uv expansion: "
+        f"3 a layer a model call, {cfg.num_layers} layers) over the "
+        f"telemetry on and off runs; {len(flat)} telemetry keys a decode "
+        f"call, "
         f"finite {finite}, MoE layers missing router_entropy {missing}; "
         f"decode dropped_fraction max {max(dropped):.3g} over "
         f"{len(dropped)} layers; greedy tokens with telemetry on == off: "
@@ -3636,7 +4054,10 @@ def phase_mla_serve(torch, card):
         f"8 requests of 16-256 prompt tokens, 16 new): telemetry on "
         f"{n_tok / wall:.1f} tok/s, decode step p50 {on50:.2f} ms; off "
         f"{n_tok / runs[False][2]:.1f} tok/s, p50 {off50:.2f} ms (on/off "
-        f"{on50 / off50:.4f}); peak device memory {peak / 2**30:.3f} GiB "
+        f"{on50 / off50:.4f}); TTFT p50 {prefill[True][0]:.1f} ms (off "
+        f"{prefill[False][0]:.1f}), prefill chunk p50 {prefill[True][1]:.2f}"
+        f" ms over {prefill[True][2]} chunks (off {prefill[False][1]:.2f}); "
+        f"peak device memory {peak / 2**30:.3f} GiB "
         f"(off {runs[False][5] / 2**30:.3f}); latent pool "
         f"{eng.backend.bytes_per_block() * eng.backend.num_blocks / 2**30:.3f}"
         f" GiB")
@@ -3644,15 +4065,22 @@ def phase_mla_serve(torch, card):
             any(v != 0.0 for v in dropped):
         raise AssertionError("deepseek serving failed: unfinished requests, "
                              "a kernel launch, telemetry or token parity")
+    if not inv_both[0] or inv_both[0] % n_moe or not inv_both[1] or \
+            inv_both[1] % (3 * cfg.num_layers) or \
+            inv_both[0] // n_moe != inv_both[1] // (3 * cfg.num_layers):
+        raise AssertionError("router_logits must launch once a MoE layer "
+                             "and batched_contract 3 times an MLA layer, "
+                             "every model call")
     del runs, eng, reqs
-    # where the time goes: 10 ticks in the middle of the same trace
+    # where the time goes: 5 ticks in the middle of the same trace (a
+    # short window: reading a profile back costs seconds a tick)
     prof_eng = ServeEngine(cfg, params, **geo)
     for pr in prompts:
         prof_eng.submit(Request(prompt=list(pr), max_new_tokens=max_new))
     for _ in range(30):
         prof_eng.step()
-    tick_profile(torch, prof_eng, 10, f"mla serve {card}: 10 ticks (ticks "
-                 f"31-40 of the trace, telemetry off)")
+    tick_profile(torch, prof_eng, 5, f"mla serve {card}: 5 ticks (ticks "
+                 f"31-35 of the trace, telemetry off)")
     del prof_eng
     res = batch_variance_probe(cfg, params, [1, 2, 3, 4], batch_size=4,
                                max_new_tokens=8, max_len=64,
@@ -3664,9 +4092,13 @@ def phase_mla_serve(torch, card):
     if res["steps_compared"] == 0:
         raise AssertionError("the probe compared no decode step")
     batch_variance_bisect(torch, cfg, params, card)
+    if not res["divergence"] < PROBE_LIMIT:
+        raise AssertionError(f"batch_variance_probe {cfg.name} reads "
+                             f"{res['divergence']:.3e} >= {PROBE_LIMIT:g}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return {"router_logits": inv_both[0], "batched_contract": inv_both[1]}
 
 
 # ---------------------------------------------------------------------------
@@ -4588,6 +5020,10 @@ def phase_contiguous_serve(torch, card):
         + " ".join(f"{k}={v:.3e}" for k, v in top))
     if res["steps_compared"] == 0:
         raise AssertionError("the probe compared no decode step")
+    if not res["divergence"] < PROBE_LIMIT:
+        raise AssertionError(f"batch_variance_probe {cfg.name} on the "
+                             f"contiguous backend reads "
+                             f"{res['divergence']:.3e} >= {PROBE_LIMIT:g}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5053,7 +5489,8 @@ def spec_compare(torch, np, cfg, params, card, backend, dtype):
         (outside it) is not timed."""
         reqs = [Request(prompt=list(p), max_new_tokens=max_new)
                 for p in prompts]
-        step_s = (timed_verify if eng._spec else timed_decode)(torch, eng)
+        step_s = timed_method(torch, eng.backend,
+                              "verify" if eng._spec else "decode")
         if phase:
             tap.wrap(eng, phase, {id(r): i for i, r in enumerate(reqs)})
         torch.cuda.synchronize()
@@ -5129,22 +5566,6 @@ def spec_compare(torch, np, cfg, params, card, backend, dtype):
         f"{res['plain_tok_s']:.1f} tok/s; K7 0 on the speculative engine, "
         f"pool leak-free")
     return res
-
-
-def timed_verify(torch, eng):
-    """``timed_decode`` for a speculative engine's verify program."""
-    verify_s = []
-    inner = eng.backend.verify
-
-    def verify(*a):
-        t0 = time.perf_counter()
-        out = inner(*a)
-        torch.cuda.synchronize()
-        verify_s.append(time.perf_counter() - t0)
-        return out
-
-    eng.backend.verify = verify
-    return verify_s
 
 
 async def http_get(host, port, path):
@@ -5496,6 +5917,7 @@ def phase_distributed(torch, card):
         use_mesh,
     )
     from repro_torch.distributed.a2a_routing import make_a2a_moe
+    from repro_torch.kernels.invariant_matmul import router_logits
     from repro_torch.kernels.soft_moe_kernels import (
         combine_apply,
         combine_bwd,
@@ -5731,14 +6153,18 @@ def phase_distributed(torch, card):
                     generator=torch.Generator(device="cuda").manual_seed(2))
     amesh = make_mesh((1,), ("model",))
     moe = make_a2a_moe(amesh, e_n, k_n, d, capacity_factor=1.0)
-    a2a_times = []
+    a2a_times, before = [], router_logits.launches
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         y = moe(x, layer["router"], ex["w_gate"], ex["w_up"], ex["w_down"])
         torch.cuda.synchronize()
         a2a_times.append(time.perf_counter() - t0)
-    probs = torch.softmax(x @ layer["router"].float(), -1)
+    a2a_router = router_logits.launches - before
+    # the reference routes on the layer's own logits (the kernel is held
+    # against its plain version in phase 6b): this check is of the
+    # exchange and the experts, which a 1-ulp tie flip would mask
+    probs = torch.softmax(router_logits(x, layer["router"].float()), -1)
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = order.values[:, :k_n], order.indices[:, :k_n]
     gate_n = gate / gate.sum(-1, keepdim=True)
@@ -5753,14 +6179,19 @@ def phase_distributed(torch, card):
         f"{d}, expert ff {mcfg.expert_d_ff}, SwiGLU; 16384 f32 tokens, cap "
         f"{16384 * k_n}): {a2a_times[-1] * 1e3:.2f} ms (first call "
         f"{a2a_times[0] * 1e3:.2f}); vs the dense dropless top-k max|diff| / "
-        f"max|ref| {a2a_err:.3e} (tol 1e-3)")
+        f"max|ref| {a2a_err:.3e} (tol 1e-3); router_logits launches "
+        f"{a2a_router} (once a call)")
     if not a2a_err <= 1e-3:
         raise AssertionError("all-to-all MoE layer disagrees")
+    if a2a_router != len(a2a_times):
+        raise AssertionError("the all-to-all layer's router must launch "
+                             "router_logits once a call")
     del layer, ex, x, y, ref
     dist.destroy_process_group()
     torch.cuda.empty_cache()
     return {"routing_fwd": launches[0], "combine_apply": launches[1],
-            "dispatch_bwd": launches[3], "combine_bwd": launches[4]}
+            "dispatch_bwd": launches[3], "combine_bwd": launches[4],
+            "router_logits": a2a_router}
 
 
 # ---------------------------------------------------------------------------
@@ -6372,6 +6803,7 @@ def main():
         kern.update(timed(phase_soft_moe_kernels, torch))
         kern.update(timed(phase_soft_moe_bwd_kernels, torch))
         kern.update(timed(phase_routing_health, torch))
+        kern.update(timed(phase_invariant_kernels, torch))
         launches = timed(phase_serve, torch, card)
         launches.update(timed(phase_vit, torch, card))
         timed(phase_sparse_vit, torch, card)
@@ -6379,8 +6811,9 @@ def main():
         lm_launches, soft_summary = timed(phase_lm_train, torch, card)
         launches.update(lm_launches)
         timed(phase_sparse_lm_train, torch, card, soft_summary)
-        timed(phase_moe_serve, torch, card)
-        timed(phase_mla_serve, torch, card)
+        launches.update(timed(phase_moe_serve, torch, card))
+        for name, n in timed(phase_mla_serve, torch, card).items():
+            launches[name] += n
         launches["paged_decode_attend"] += timed(
             phase_vlm, torch, card)["paged_decode_attend"]
         timed(phase_long_lm_train, torch, card)

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.invariant_matmul import router_logits
 from ..layers.common import lecun_init
 from ..layers.mlp import expert_init, experts_apply
 
@@ -49,8 +50,12 @@ def sparse_moe_init(gen: torch.Generator, d_model: int, moe_cfg,
 
 
 def _router_logits(params, x):
-    """(g, t, d) -> (g, t, e) router logits, in f32 from f32 weights."""
-    return torch.einsum("gtd,de->gte", x.float(), params["router"].float())
+    """(g, t, d) -> (g, t, e) router logits, in f32 from f32 weights,
+    through the fixed-order kernel in every mode: a row's logits do not
+    depend on how many rows the call holds, so serving stays batch
+    invariant on the card and ``batch_coupled`` serving equals
+    ``mode="train"`` bitwise."""
+    return router_logits(x.float(), params["router"].float())
 
 
 def _routing_scope(moe_cfg, mode: str, b: int, m: int):

@@ -16,7 +16,9 @@ capacity-constrained tokens-choice:
   4. a second ``all_to_all_single`` returns the outputs; combine with the
      gate weights.
 
-As in the reference, the train step does not route through it (the
+The router logits are the sparse layers' own (``kernels.invariant_matmul.
+router_logits``: the fixed-order kernel on the card, the plain product
+elsewhere). As in the reference, the train step does not route through it (the
 reference leaves that integration as its next step).
 """
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..kernels.invariant_matmul import router_logits
 from .api import current_mesh
 
 
@@ -91,7 +94,8 @@ def a2a_route_and_compute(x, router_w, expert_fn, *, axis_name: str,
     t, d = x.shape
     cap = max(int(capacity_factor * top_k * t / nd), 1)
 
-    logits = x.float() @ router_w.float()
+    # the sparse layers' router: the fixed-order kernel on the card
+    logits = router_logits(x.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k: the larger first, ties to the lower index (a stable sort)
     order = torch.sort(probs, dim=-1, descending=True, stable=True)

@@ -63,8 +63,9 @@ row order.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -159,3 +160,73 @@ def paged_split_tiles(paged_block_kv: int) -> int:
     kernel (K7) covers: as many as fit in ``PAGED_SPLIT_KEYS``, at least
     one. A function of the pool's tiling alone."""
     return max(1, PAGED_SPLIT_KEYS // paged_block_kv)
+
+
+# -- autotune sweep hook -----------------------------------------------------
+
+# (block_tokens, block_slots) candidates: the Hopper kernels take blocks of
+# at most SOFT_MOE_TILE (one warp lane per token or slot)
+DEFAULT_SWEEP: Sequence[tuple] = (
+    (8, 32), (16, 16), (16, 32), (32, 8), (32, 16), (32, 32),
+)
+
+
+def _first_tensor(out):
+    """``out`` itself or the first tensor of a (nested) tuple or list."""
+    if isinstance(out, torch.Tensor):
+        return out
+    if isinstance(out, (tuple, list)):
+        for o in out:
+            t = _first_tensor(o)
+            if t is not None:
+                return t
+    return None
+
+
+def _seconds_per_call(fn: Callable, iters: int) -> float:
+    """Mean seconds of ``fn()`` after one warm-up call (which builds a
+    kernel at first use): CUDA events when it returns a CUDA tensor, the
+    host clock otherwise."""
+    first = _first_tensor(fn())
+    if first is not None and first.device.type == "cuda":
+        with torch.cuda.device(first.device):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / 1e3 / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters
+
+
+def autotune(build_fn: Callable[[KernelConfig], Callable[[], object]],
+             base: Optional[KernelConfig] = None,
+             sweep: Sequence[tuple] = DEFAULT_SWEEP,
+             iters: int = 3) -> KernelConfig:
+    """Time ``build_fn(cfg)()`` for each (block_tokens, block_slots) of the
+    sweep and return the fastest config (``base`` if none runs).
+    ``build_fn`` returns a nullary thunk over real operands; a warm-up
+    call keeps the kernel's build out of the time. Candidates above
+    ``SOFT_MOE_TILE``, which the kernels refuse, are not tried; a
+    candidate that raises is skipped rather than fatal, as in the
+    reference. Offline use only (a benchmark, start-up): it synchronizes
+    around each candidate."""
+    base = base or KernelConfig()
+    best, best_t = base, float("inf")
+    for bt, bs in sweep:
+        if max(bt, bs) > SOFT_MOE_TILE:
+            continue
+        cfg = base.replace(block_tokens=bt, block_slots=bs)
+        try:
+            dt = _seconds_per_call(build_fn(cfg), iters)
+        except Exception:  # noqa: BLE001 — skip tilings the kernel refuses
+            continue
+        if dt < best_t:
+            best, best_t = cfg, dt
+    return best

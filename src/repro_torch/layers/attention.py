@@ -20,9 +20,13 @@ Three execution modes share one code path:
 
 Both attend densely (``_attend``) or, once Sq * Sk passes
 ``_CHUNKED_THRESHOLD``, with the flash-style online softmax over key
-blocks (``_attend_chunked``), as the reference does. Rings and pools
-are updated IN PLACE (the JAX package returns a new pytree and donates
-the old one; here the same tensors are written).
+blocks (``_attend_chunked``), as the reference does. MLA's dense f32
+products (its scores and weighted latent over the one-group latent view,
+and the expansion through ``w_uv``) go through ``_f32_contract``: on calls
+that need no gradient (serving) the fixed-order kernel, so a row's output
+does not depend on its batch.
+Rings and pools are updated IN PLACE (the JAX package returns a new
+pytree and donates the old one; here the same tensors are written).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.invariant_matmul import batched_contract
 from ..kernels.paged_attention import paged_decode_attend
 from .common import lecun_init, resolve_device
 from .rotary import apply_rope
@@ -109,20 +114,44 @@ def init_paged_kv_cache(cfg, num_blocks: int, block_size: int,
     return pool
 
 
+def _f32_contract(a, b):
+    """(n, p, k) x (n, k, q) -> (n, p, q) f32 product: the fixed-order
+    kernel (``kernels.invariant_matmul.batched_contract``) when no operand
+    needs a gradient (serving: a row's result does not depend on how many
+    rows or matrices the call holds, which cuBLAS's batched f32 products
+    do not promise), ``torch.bmm`` otherwise (training)."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return torch.bmm(a, b)
+    return batched_contract(a, b)
+
+
 def _attend(q, k, v, mask, scale: Optional[float] = None):
     """q: (B,Sq,H,Dk); k: (B,Sk,G,Dk); v: (B,Sk,G,Dv) grouped;
-    mask: (B,Sq,Sk) bool or None. Softmax in f32, output in q's dtype."""
+    mask: (B,Sq,Sk) bool or None. Softmax in f32, output in q's dtype.
+    Keys of one group (G = 1: MLA's latent view, or a GQA layer with one
+    KV head) take their two f32 products, batched over B, through
+    `_f32_contract`."""
     b, sq, h, d = q.shape
     g, dv = k.shape[2], v.shape[-1]
     rep = h // g
     scale = scale if scale is not None else 1.0 / float(d) ** 0.5
     qg = q.reshape(b, sq, g, rep, d)
-    logits = scale * torch.einsum("bsgrd,btgd->bgrst", qg.float(), k.float())
+    if g == 1:  # (B, H Sq, Dk) x (B, Dk, Sk), the keys read in place
+        rows = qg.float()[:, :, 0].transpose(1, 2).reshape(b, rep * sq, d)
+        logits = _f32_contract(rows, k.float()[:, :, 0].transpose(1, 2))
+        logits = scale * logits.reshape(b, 1, rep, sq, -1)
+    else:
+        logits = scale * torch.einsum("bsgrd,btgd->bgrst", qg.float(),
+                                      k.float())
     if mask is not None:
         bias = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
         logits = logits + bias[:, None, None]
     w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bgrst,btgd->bsgrd", w, v.float())
+    if g == 1:  # (B, H Sq, Sk) x (B, Sk, Dv) -> (B, Sq, 1, H, Dv)
+        out = _f32_contract(w.reshape(b, rep * sq, -1), v.float()[:, :, 0])
+        out = out.reshape(b, 1, rep, sq, dv).permute(0, 3, 1, 2, 4)
+    else:
+        out = torch.einsum("bgrst,btgd->bsgrd", w, v.float())
     return out.reshape(b, sq, h, dv).to(q.dtype)
 
 
@@ -512,9 +541,20 @@ def mla_apply(params, cfg, x, *, positions=None, cache=None,
     k_cat = torch.cat([ckv_all, krope_all], dim=-1)[:, :, None]
     lat = _attend_any(q_cat, k_cat, ckv_all[:, :, None], positions, kpos,
                       cfg.causal, None, scale=scale)
-    out = torch.einsum("bshr,rhv->bshv", lat.float(), params["w_uv"].float())
+    out = _latent_up(lat, params["w_uv"].float())
     out = torch.einsum("bshv,hvd->bsd", out.to(dt), params["wo"].to(dt))
     return out, cache
+
+
+def _latent_up(lat, w_uv):
+    """(B, S, H, rank) x (rank, H, Dv) -> (B, S, H, Dv) in f32: MLA's
+    expansion of the weighted latent through ``w_uv``, one matrix a head
+    over the B S rows, through `_f32_contract` (cuBLAS's f32 product here
+    moved with the row count on the card)."""
+    b, s, h, r = lat.shape
+    rows = lat.float().reshape(b * s, h, r).transpose(0, 1)  # (H, B S, r)
+    out = _f32_contract(rows, w_uv.permute(1, 0, 2))  # (H, B S, Dv)
+    return out.transpose(0, 1).reshape(b, s, h, -1)
 
 
 def attention_init(gen: torch.Generator, cfg):

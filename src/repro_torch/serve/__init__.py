@@ -64,8 +64,11 @@ from .programs import (  # noqa: F401
 from .sampling import (  # noqa: F401
     GREEDY,
     SamplingParams,
+    sample_greedy,
+    sample_temperature,
     sample_tokens,
     spec_accept_tokens,
+    stack_params,
 )
 from .scheduler import (  # noqa: F401
     QueueFull,

@@ -51,6 +51,7 @@ from .sampling import (
     SamplingParams,
     sample_tokens,
     sample_tokens_checked,
+    stack_params,
 )
 from .scheduler import Request, Scheduler
 from .spec_decode import SpecConfig, SpecDecoder
@@ -653,12 +654,10 @@ class WaveEngine:
         sp = [r.sampling if r.sampling is not GREEDY
               else self.default_sampling for r in wave]
         sp += [GREEDY] * (self.batch - len(wave))
+        st = stack_params(sp)
         toks = sample_tokens(
-            logits[:, -1].float(),
-            np.array([p.temperature for p in sp], np.float32),
-            np.array([p.top_k for p in sp], np.int32),
-            np.array([p.top_p for p in sp], np.float32),
-            np.array([p.seed for p in sp], np.int32),
+            logits[:, -1].float(), st["temperature"], st["top_k"],
+            st["top_p"], st["seed"],
             np.full((self.batch,), step_base, np.int32),
         )
         return toks.cpu().numpy()

@@ -36,6 +36,19 @@ class SamplingParams:
 
 GREEDY = SamplingParams()
 
+
+def stack_params(params_list) -> dict:
+    """Struct-of-arrays view of a list of SamplingParams (host numpy; fed
+    straight into `sample_tokens`)."""
+    return {
+        "temperature": np.array([p.temperature for p in params_list],
+                                np.float32),
+        "top_k": np.array([p.top_k for p in params_list], np.int32),
+        "top_p": np.array([p.top_p for p in params_list], np.float32),
+        "seed": np.array([p.seed for p in params_list], np.int32),
+    }
+
+
 _MASK64 = (1 << 64) - 1
 
 
@@ -184,3 +197,28 @@ def spec_accept_tokens(logits, drafts, n_draft, temperature, top_k, top_p,
         torch.arange(k, device=dev)[None] < n_draft[:, None])
     n_acc = torch.cumprod(ok.long(), dim=1).sum(dim=1)
     return n_acc, chain
+
+
+# ---------------------------------------------------------------------------
+# Single-shot convenience samplers (the reference's wave engine, examples
+# and tests)
+# ---------------------------------------------------------------------------
+
+
+def sample_greedy(gen, logits):
+    """logits: (B, S, V) -> (B,) int32, the argmax at the last position.
+    ``gen`` (a ``torch.Generator`` or None) is unused: the signature is
+    the reference's, whose first argument is a PRNG key."""
+    del gen
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+
+def sample_temperature(gen, logits, temperature: float = 1.0):
+    """logits: (B, S, V) -> (B,) int32 drawn from softmax(last / T) by the
+    Gumbel-max trick, with uniform noise from the ``torch.Generator``
+    ``gen`` (on logits' device). T is floored at 1e-6, as in the
+    reference, where the draw is the argmax."""
+    last = logits[:, -1].float() / max(float(temperature), 1e-6)
+    noise = torch.rand(last.shape, generator=gen, device=last.device)
+    gumbel = -torch.log(-torch.log(noise.clamp_min(1e-20)))
+    return torch.argmax(last + gumbel, dim=-1).to(torch.int32)

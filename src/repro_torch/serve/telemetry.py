@@ -191,14 +191,21 @@ def batch_variance_probe(cfg, params, prompt, batch_size: int = 4,
 
     Serving routes every arch per row (dense MLPs, Soft MoE's
     per-sequence softmaxes, and the sparse variants' dropless per-row
-    routing), so the probe reads ~0 (< 1e-5 on the CPU) on every served
-    arch, grouped BPR Tokens Choice with binding capacity included. The
-    one sanctioned way to make it read finite is the
-    ``MoEConfig.batch_coupled=True`` hatch with ``group_size =
-    batch_size``, a ``capacity_factor`` low enough to bind and
-    ``bpr=True``, which proves the instrument alive. ``backend``
-    defaults to ``"contiguous"``, as in the reference. ``engine_kw``
-    goes to ``ServeEngine`` (``device="cpu"`` off the card)."""
+    routing), and the f32 products whose order a library would pick by
+    the row count (the sparse router, MLA's attention and ``w_uv``
+    expansion) run the fixed-order kernel
+    (``kernels/invariant_matmul.py``), so the probe must read ~0 (< 1e-5)
+    on EVERY served arch, on the CPU and on the card, grouped BPR Tokens
+    Choice with binding capacity included: a finite reading on a default
+    config is a regression. The exception is the SSM archs with random
+    weights (mamba2, hymba), whose recurrences amplify rounding: the
+    reference's CPU probe reads above 1e-5 there too. The one sanctioned
+    way to make it read finite is the ``MoEConfig.batch_coupled=True``
+    hatch with ``group_size = batch_size``, a ``capacity_factor`` low
+    enough to bind and ``bpr=True``, which proves the instrument alive.
+    ``backend`` defaults to ``"contiguous"``, as in the reference.
+    ``engine_kw`` goes to ``ServeEngine`` (``device="cpu"`` off the
+    card)."""
     from .engine import ServeEngine
     from .scheduler import Request
 

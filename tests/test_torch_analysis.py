@@ -383,9 +383,12 @@ def test_host_purity_repo_clean_modulo_allowlist():
     assert report.checked["host-purity"] >= 20
     # the port's telemetry drain copies to the host with .cpu(), the
     # counterpart of the reference's np.asarray token fetch, which no
-    # rule flags: the reference's allowlisted syncs have no counterpart
-    # here (ROADMAP queue 3), while the allowlist keeps both files
-    assert report.findings == []
+    # rule flags; the one flagged file is the autotune harness, whose
+    # syncs around a timed candidate the allowlist admits, as the
+    # reference's tuning.py:157,160
+    assert report.findings
+    assert all(f.where.startswith("src/repro_torch/kernels/tuning.py:")
+               and f.allowed for f in report.findings), report.render()
     assert {r.pattern for r in DEFAULT_ALLOWLIST
             if r.pass_name == "host-purity"} == {
         "src/repro_torch/kernels/tuning.py:*",

@@ -7,8 +7,10 @@ ranks:
   (bytes, counts, group sizes), and on a 2×16×16 mesh marks the reduce
   over ``pod`` as crossing pods and the one over ``data`` as not;
 - ``run_cell`` runs reduced qwen2-0.5b ``train_4k`` (plain and ZeRO-1)
-  and ``decode_32k``, and reduced granite-moe-1b-a400m+soft
-  ``train_4k``, to ``"status": "ok"``, with collectives recorded from
+  and ``decode_32k``, reduced granite-moe-1b-a400m+soft and
+  granite-moe-1b-a400m ``train_4k`` and reduced deepseek-v2-lite-16b
+  ``decode_32k`` (the sparse router and MLA's fixed-order products on
+  meta tensors) to ``"status": "ok"``, with collectives recorded from
   the program; its ``args_bytes_per_dev`` equals the sum taken from the
   JAX ``param_specs`` and the mesh's axis sizes, its analytic terms equal
   the JAX ``analytic_cost``, and no process group is left behind;
@@ -148,7 +150,10 @@ def _jax_args_bytes(jx, arch, zero1):
     ("qwen2-0.5b", "train_4k", True),
     ("qwen2-0.5b", "decode_32k", False),
     ("granite-moe-1b-a400m+soft", "train_4k", False),
-], ids=["qwen-train", "qwen-train-zero1", "qwen-decode", "granite-soft"])
+    ("granite-moe-1b-a400m", "train_4k", False),
+    ("deepseek-v2-lite-16b", "decode_32k", False),
+], ids=["qwen-train", "qwen-train-zero1", "qwen-decode", "granite-soft",
+        "granite-sparse", "deepseek-decode"])
 def test_run_cell(jx, reduced_cells, arch, shape, zero1):
     r = dryrun.run_cell(arch, shape, zero1=zero1, verbose=False)
     assert not dist.is_initialized()

@@ -15,7 +15,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
-    (ROOT / "examples" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
+    (ROOT / "examples" / "torch").glob("*.py")) + sorted(
+    (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path):
@@ -38,6 +39,8 @@ def test_port_file_imports_no_jax_and_no_repro(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve, repro_torch.convert, "
             "repro_torch.kernels.build, repro_torch.kernels.ops, "
+            "repro_torch.kernels.invariant_matmul, "
+            "repro_torch.kernels.tuning, "
             "repro_torch.models, repro_torch.core, repro_torch.train, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
             "repro_torch.core.inspection, repro_torch.serve.telemetry, "
