@@ -82,8 +82,12 @@ prints no result line):
    probe's 64 keys and the served 2048), rows M in {1, 4, 8, 256, 2048}
    (at 2048 keys {1, 4, 8}): each within 1e-6 of max|ref| of its plain
    einsum, row 0 of every launch bitwise the 1-row launch (the plain
-   einsum's own row 0 against its 1-row call logged beside it),
-   malformed operands raise; then its time (L2 flushed, median of 30)
+   einsum's own row 0 against its 1-row call logged beside it); every
+   row (matrix) bitwise its 1-row (1-matrix) launch at counts across the
+   launch plan's tile and split boundaries (deepseek's router to 8385
+   rows, MLA prefill's products to 4096, MLA decode's values at 17
+   matrices), with the plan logged; malformed operands raise; then its
+   time (L2 flushed, median of 30)
    beside the plain einsum, one cuBLAS call (``torch.matmul`` /
    ``torch.bmm``) and its bound, from decode rows to training's 16384,
    and MLA prefill's products against the 2048-key view (a 32-token
@@ -504,7 +508,8 @@ def kernel_label(line):
     line (a mangled name: its nested identifiers, each prefixed by its
     length, then its template arguments: the element type and, for the
     Soft-MoE kernels, K1's chunk rows in 32-token units or the slot tile's
-    32-slot count (K2-K6))."""
+    32-slot count (K2-K6); for the invariant contraction its output tile
+    and B's staged layout)."""
     import re
 
     mangled = line.split("'")[1] if "'" in line else line
@@ -528,6 +533,11 @@ def kernel_label(line):
         args.append(f"slot tile {32 * int(nv.group(1))}")
     elif nv and label == "routing_kernel":  # K1: the chunk's token rows
         args.append(f"chunk <= {32 * int(nv.group(1))} tokens")
+    elif label == "contract_kernel":  # <WM, WN, MT, NT, B k-fast>
+        wm, wn, mt, nt = (int(v) for v in re.findall(r"Li(\d+)E", rest)[:4])
+        kf = re.search(r"Lb(\d)E", rest)
+        args.append(f"tile {16 * wm * mt} x {8 * wn * nt}, B "
+                    f"{'[q][k]' if kf and kf.group(1) == '1' else '[k][q]'}")
     return label + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -1942,6 +1952,70 @@ def invariance_case(torch, fn, ref, many, one, label):
     return err, mag
 
 
+def plan_note(a, b):
+    """The launch plan ``kernels.invariant_matmul._plan`` makes for
+    ``batched_contract(a, b)``: tile, B's layout, copies, split."""
+    from repro_torch.kernels import invariant_matmul as im
+
+    a, b = im._unit_strided(a, b)
+    n, p, k = a.shape
+    pl = im._plan(n, p, k, b.shape[2], a.stride(), b.stride(),
+                  a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
+    bm, bn = im.TILES[pl.tile]
+    return (f"plan: tile {bm} x {bn}, B {'k' if pl.b_k_fast else 'q'}-fast, "
+            f"{16 if pl.vec_a else 4}/{16 if pl.vec_b else 4}-byte copies, "
+            f"{pl.n_chunks} chunk(s) over {pl.n_split} CTA(s), grid "
+            f"{pl.grid}")
+
+
+def every_row_cases(torch, gen):
+    """Every row of an M-row launch (every matrix of an n-matrix launch)
+    against its 1-row (1-matrix) launch, bitwise, at counts that cross
+    the plan's tile boundaries (16-row tiles up to 256 rows, 64-row ones
+    after, 128-row ones from 4096 rows of at least 128 columns) and its
+    split boundary (a grid of 132 tiles): deepseek's router at 8385 rows,
+    MLA prefill's products at 4096 rows (256 tokens x 16 heads) and MLA
+    decode's values at 17 matrices of 2048 keys."""
+    from repro_torch.kernels.invariant_matmul import (
+        batched_contract,
+        router_logits,
+    )
+
+    def check(fn, counts, label, note):
+        """fn(lo, hi): the launch of rows [lo, hi)."""
+        t0 = time.perf_counter()
+        solo = torch.cat([fn(i, i + 1) for i in range(max(counts))])
+        moved = {}
+        for m in counts:
+            out = fn(0, m)
+            torch.cuda.synchronize()
+            moved[m] = int((out != solo[:m]).sum())
+        log(f"[invariant] every row bitwise: {label}, counts {counts}: "
+            f"elements differing from the 1-row launches {moved} "
+            f"({time.perf_counter() - t0:.2f} s; at the largest count "
+            f"{note})")
+        if any(moved.values()):
+            raise AssertionError(f"invariant_matmul {label}: a row moved "
+                                 f"with the launch's row count")
+
+    w = torch.randn(2048, 64, generator=gen, device="cuda") / 2048 ** 0.5
+    x = torch.randn(8385, 1, 2048, generator=gen, device="cuda")
+    check(lambda lo, hi: router_logits(x[lo:hi], w),
+          (1, 9, 256, 257, 2048, 8384, 8385),
+          "router_logits deepseek (M, 1, 2048) x (2048, 64)",
+          plan_note(x.reshape(1, -1, 2048), w[None]))
+    (q, kt), (wt, v) = mla_attend_operands(torch, gen, 1, 2048, h=4096)
+    for kind, a, b in (("scores", q, kt), ("values", wt, v)):
+        check(lambda lo, hi: batched_contract(a[:, lo:hi], b)[0],
+              (1, 16, 17, 128, 129, 256, 257, 4095, 4096),
+              f"batched_contract MLA prefill {kind} (1, M, {a.shape[2]}) x "
+              f"{tuple(b.shape)}", plan_note(a, b))
+    (q, kt), (wt, v) = mla_attend_operands(torch, gen, 17, 2048)
+    check(lambda lo, hi: batched_contract(wt[lo:hi], v[lo:hi]),
+          (1, 8, 16, 17), "batched_contract MLA decode values (n, 16, "
+          "2048) x (n, 2048, 512)", plan_note(wt, v))
+
+
 def phase_invariant_kernels(torch):
     """The fixed-order f32 contraction (``kernels/invariant_matmul.py``,
     ``csrc/invariant_matmul.cu``) at the sparse routers' and MLA decode's
@@ -1978,6 +2052,10 @@ def phase_invariant_kernels(torch):
                     tuple(o[:1] for o in ops), f"batched_contract MLA "
                     f"{kind} {tuple(ops[0].shape)} x {tuple(ops[1].shape)}")
                 errs["batched_contract"] = max(errs["batched_contract"], err)
+
+    # Every row (matrix) bitwise its 1-row (1-matrix) launch, at counts on
+    # both sides of the plan's tile and split boundaries
+    every_row_cases(torch, gen)
 
     # No fallback: malformed operands raise and launch nothing.
     x, w = x[:4], torch.randn(1024, 32, generator=gen, device="cuda")
@@ -2026,7 +2104,8 @@ def phase_invariant_kernels(torch):
                 f"d={d}, e={e}, L2 flushed): kernel_ms={ms:.4f} "
                 f"plain_ms(einsum)={plain:.4f} library_ms(torch.matmul)="
                 f"{lib:.4f} bound={bound * 1e3:.3f} us ({by}); kernel/"
-                f"bound {ms / bound:.1f}x, kernel/library {ms / lib:.2f}x")
+                f"bound {ms / bound:.1f}x, kernel/library {ms / lib:.2f}x; "
+                f"{plan_note(x2[None], w[None])}")
     for t, n in ((2048, 8), (2048, 1), (64, 4)):
         for kind, ops in zip(("scores", "values"),
                              mla_attend_operands(torch, gen, n, t)):
@@ -2044,7 +2123,7 @@ def phase_invariant_kernels(torch):
                 f"flushed): kernel_ms={ms:.4f} plain_ms(einsum)={plain:.4f} "
                 f"library_ms(torch.bmm)={lib:.4f} bound={bound * 1e3:.3f} us "
                 f"({by}); kernel/bound {ms / bound:.1f}x, kernel/library "
-                f"{ms / lib:.2f}x")
+                f"{ms / lib:.2f}x; {plan_note(a, b)}")
     # MLA prefill, one request against the 2048-key gathered view: the
     # engine's 32-token chunk, a 256-token chunk, and a 2048-token
     # forward that needs no gradient (its 32768 rows stay on the dense
@@ -2082,7 +2161,9 @@ def phase_invariant_kernels(torch):
                 f"us ({by}); kernel/bound {ms / bound:.1f}x, kernel/library "
                 f"{ms / lib:.2f}x, "
                 f"{2 * a.shape[1] * a.shape[2] * b.shape[2] / ms / 1e9:.2f} "
-                f"TFLOP/s")
+                f"TFLOP/s (cuBLAS "
+                f"{2 * a.shape[1] * a.shape[2] * b.shape[2] / lib / 1e9:.2f});"
+                f" {plan_note(a, b)}")
             if not (err64 <= 1e-6 * mag and bitwise):
                 raise AssertionError(f"batched_contract MLA prefill {kind} "
                                      f"{tuple(a.shape)} failed")
@@ -2101,7 +2182,8 @@ def phase_invariant_kernels(torch):
         f"x (16, 512, 128) strided views, L2 flushed): kernel_ms={ms:.4f} "
         f"plain_ms(einsum)={plain:.4f} library_ms(torch.bmm)={lib:.4f} "
         f"bound={bound * 1e3:.3f} us ({by}); kernel/bound "
-        f"{ms / bound:.1f}x, kernel/library {ms / lib:.2f}x")
+        f"{ms / bound:.1f}x, kernel/library {ms / lib:.2f}x; "
+        f"{plan_note(a, b)}")
     # what a call costs a host-bound decode step: 200 calls back to back
     # at granite's decode router (8 rows), synchronised once, so each
     # reads the larger of its host cost and its device time
@@ -2343,6 +2425,8 @@ def kernel_kind(name):
         return "K2 combine"
     if "inv_norm_kernel" in name:
         return "K1/K2/K3/K6 norm pre-pass"
+    if "contract_kernel" in name:
+        return "invariant contraction"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "gemv", "nvjet")):
         return "matmul"
     if "copy_kernel" in low:

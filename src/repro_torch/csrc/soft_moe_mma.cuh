@@ -2,7 +2,8 @@
 // (sm_90a) that run their products on the tensor cores: K1 routing
 // (soft_moe_routing.cu), K2/K3 combine (soft_moe_combine.cu), the
 // backward kernels K4/K5 (soft_moe_bwd.cuh) and K6 routing health
-// (soft_moe_routing_health.cu).
+// (soft_moe_routing_health.cu); the fixed-order contraction
+// (invariant_matmul.cu) takes its mma and cp.async pieces.
 //
 // Products run with mma.sync at f32 accuracy: a bf16 operand is exact in
 // TF32; an f32 operand is split into a TF32 high part and a TF32 low

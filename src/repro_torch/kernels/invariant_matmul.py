@@ -1,17 +1,32 @@
-"""Fixed-order f32 contractions: the CUDA kernel's wrappers and their
-plain versions.
+"""Fixed-order f32 contractions: the CUDA kernel's wrappers, its launch
+plan and their plain versions.
 
 The kernel (``csrc/invariant_matmul.cu``, written for Hopper, built
 with ``nvcc`` at first use and called through ctypes) replaces no Pallas
 kernel. It computes f32 products that the reference leaves to XLA, in an
-order that does not depend on the batch: every output element is summed
-over k in 32-wide tiles taken in index order, one k a warp lane, and the
-lanes' sums added by a fixed butterfly. So row i of an M-row launch, or
+order that does not depend on the batch, so row i of an M-row launch, or
 matrix i of an n-matrix launch, equals a 1-row or 1-matrix launch
 bitwise, whatever M or n (rule 2 of the port). cuBLAS picks its f32
 kernel, and with it the order of the sums, by the row and batch counts,
 and the card's ``serve.telemetry.batch_variance_probe`` read ~1e-2 on
 the sparse archs where the reference requires < 1e-5.
+
+The order of every output element depends on K alone (``K_STEP``,
+``K_CHUNK``): k in 8-wide steps in index order, each step one chain of
+tensor-core products at f32 accuracy (split TF32: lo·hi, + hi·lo,
++ hi·hi, from zero), the steps' partials added in f32 into 256-wide chunk
+sums, the chunk sums added in chunk order into the total. ``_plan``
+chooses the rest, none of which moves a sum: the output tile (``TILES``:
+16 x 64, 64 x 64 or 128 x 64), B's staged layout (q- or k-unit-stride,
+read in place), 16- or 4-byte copies, and whether one CTA walks all
+chunks or, when the grid would not fill the card, a cluster of one CTA a
+chunk adds the chunk sums in the same order through shared memory. At
+decode the kernel is bound by the bytes of the shared operand (the
+router weight, the latent view) and by latency, which the split into
+chunks spreads over more CTAs; at prefill and training's router rows by
+issuing its products (three mma and the split of each operand value a
+step), which run on the tensor cores in register-blocked warp tiles fed
+by a 4-deep cp.async ring, two CTAs an SM.
 
 The products routed through it:
 
@@ -41,7 +56,9 @@ Both launch the kernel for CUDA tensors and run the plain version (the
 einsum that the reference's product is) for any other tensor: CPU
 tensors, and the meta tensors of the dry-run (``launch/dryrun.py``),
 which hold shapes only. There is no fallback: a CUDA call whose kernel
-does not build or launch raises.
+does not build or launch raises. An operand with no unit stride where
+the kernel needs one is made contiguous first (the same values, the
+same kernel).
 ``router_logits.launches`` and ``batched_contract.launches`` count
 launches (never plain runs), so a caller can show that a run went
 through the kernel.
@@ -49,6 +66,8 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -96,30 +115,127 @@ def _contract_shapes(a, b):
         raise ValueError(f"a on {a.device}, b on {b.device}")
 
 
+# The kernel's k order (csrc/invariant_matmul.cu: kTK, kChunk): the same
+# for every launch.
+K_STEP = 8      # one chain of tensor-core products from zero
+K_TILE = 32     # k a pipeline stage
+K_CHUNK = 256   # k a chunk sum
+MAX_SPLIT = 8   # chunks a cluster can hold (a portable cluster)
+# (rows, columns) of the output tiles. Tile 0 takes up to SMALL_ROWS rows
+# (decode and short prefill chunks: the most CTAs); tile 1 at least
+# LARGE_ROWS rows of at least 128 columns (prefill: the most reuse a
+# staged value); tile 2 the rest (the routers at training's rows, mid-size
+# prefill), where 128-row tiles left the card idle (PERF.md §6).
+TILES = ((16, 64), (128, 64), (64, 64))
+SMALL_ROWS, LARGE_ROWS = 256, 4096
+FILL = 132      # CTAs that fill the H100 once (its SMs)
+
+
+class Plan(NamedTuple):
+    """One launch of the kernel. ``k_step``, ``k_tile``, ``k_chunk``,
+    ``n_chunks`` and ``merge`` fix the order of every sum and depend on K
+    alone; the rest place the work (the output tile, B's staged layout,
+    the copy width, the CTAs a tile's chunks are spread over) and move no
+    sum."""
+    k_step: int
+    k_tile: int
+    k_chunk: int
+    n_chunks: int
+    merge: str
+    tile: int
+    b_k_fast: bool
+    vec_a: bool
+    vec_b: bool
+    n_split: int
+    grid: tuple
+
+
+def _cdiv(x, y):
+    return -(-x // y)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(n, P, K, Q, a_strides, b_strides, a_aligned=True,
+          b_aligned=True):
+    """The launch plan of an (n, P, K) x (n, K, Q) product whose operands
+    have element strides ``a_strides`` / ``b_strides`` (tuples; A
+    k-unit-stride, B q- or k-unit-stride, as ``_unit_strided`` makes
+    them) and data pointers 16-byte aligned or not. Cached: a serving
+    step makes the same few calls every step."""
+    sa_n, sa_p, _ = a_strides
+    sb_n, sb_k, sb_q = b_strides
+    n_chunks = max(1, _cdiv(K, K_CHUNK))
+    b_k_fast = not (Q == 1 or sb_q == 1)
+    if P <= SMALL_ROWS:
+        tile = 0
+    elif P >= LARGE_ROWS and Q >= 128:
+        tile = 1
+    else:
+        tile = 2
+    bm, bn = TILES[tile]
+
+    def vec(aligned, *strides):
+        return aligned and all(s % 4 == 0 for s in strides)
+
+    vec_a = K % 4 == 0 and vec(a_aligned, *([sa_n] if n > 1 else []),
+                                *([sa_p] if P > 1 else []))
+    if b_k_fast:
+        vec_b = K % 4 == 0 and vec(b_aligned, *([sb_n] if n > 1 else []),
+                                    *([sb_q] if Q > 1 else []))
+    else:
+        vec_b = Q % 4 == 0 and vec(b_aligned, *([sb_n] if n > 1 else []),
+                                    *([sb_k] if K > 1 else []))
+    tiles = n * _cdiv(P, bm) * _cdiv(Q, bn)
+    n_split = (n_chunks if 1 < n_chunks <= MAX_SPLIT and tiles < FILL
+               else 1)
+    return Plan(k_step=K_STEP, k_tile=K_TILE, k_chunk=K_CHUNK,
+                n_chunks=n_chunks, merge="chunk order from 0", tile=tile,
+                b_k_fast=b_k_fast, vec_a=vec_a, vec_b=vec_b,
+                n_split=n_split,
+                grid=(_cdiv(Q, bn) * n_split, _cdiv(P, bm), n))
+
+
+def _unit_strided(a, b):
+    """a with a unit k stride, b with a unit q or k stride: the operands
+    as they are where they have one (every operand of the main path),
+    else a contiguous copy. A dimension of one element needs none."""
+    _, p, k = a.shape
+    q = b.shape[2]
+    if k > 1 and a.stride(2) != 1:
+        a = a.contiguous()
+    if not (q == 1 or b.stride(2) == 1 or k == 1 or b.stride(1) == 1):
+        b = b.contiguous()
+    return a, b
+
+
 def _launcher():
     from .build import load
 
     fn = load("invariant_matmul").invariant_contract_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 3 + [i] * 4 + [ll] * 6 + [p]
+        fn.argtypes = [p] * 3 + [i] * 4 + [ll] * 6 + [i] * 5 + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _contract_cuda(a, b):
-    """Launch the kernel on (n, p, k) x (n, k, q) f32 views of any
-    strides; returns a contiguous (n, p, q) f32 tensor."""
+    """Launch the kernel on (n, p, k) x (n, k, q) f32 views; returns a
+    contiguous (n, p, q) f32 tensor."""
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
+    a, b = _unit_strided(a, b)
     n, p, k = a.shape
     q = b.shape[2]
+    plan = _plan(n, p, k, q, a.stride(), b.stride(),
+                 a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
     out = torch.empty((n, p, q), dtype=torch.float32, device=a.device)
     fn = _launcher()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, p, k, q,
-                 *a.stride(), *b.stride(), stream)
+                 *a.stride(), *b.stride(), plan.tile, int(plan.b_k_fast),
+                 int(plan.vec_a), int(plan.vec_b), plan.n_split, stream)
     if err != 0:
         raise RuntimeError(f"invariant_matmul launch failed: cudaError {err}")
     return out

@@ -15,11 +15,20 @@ numpy inputs, in f32:
   gradient;
 - ``batch_coupled`` serving equal to ``mode="train"`` bitwise, both
   variants;
-- malformed operands raise and launch nothing.
+- malformed operands raise and launch nothing;
+- the launch plan (``_plan``): the fields that fix the order of the sums
+  (k step, k tile, chunk width and count, merge) are the same for every
+  M and n at a given K, whatever the tile, the layout or the split; a
+  split cluster's chunk merge gives the bits of one CTA's running total;
+  operands are made unit-strided only where they have no unit stride.
 
 The ``cuda``-marked tests hold the kernel against its plain version on
-the card (within 1e-6 of max|ref|) with row 0 of every launch bitwise the
-1-row launch; they skip here. The JAX reference is imported by the
+the card (within 1e-6 of max|ref|) with every row (every matrix) of
+every launch bitwise its 1-row (1-matrix) launch, at row and matrix
+counts on both sides of each tile and split boundary of the plan, on
+the main path's four layouts (the router weight, the transposed key
+view, the latent values, ``w_uv``'s strided views) and on misaligned
+operands; they skip here. The JAX reference is imported by the
 ``jx`` fixture, so that the file also collects on a GPU machine without
 jax."""
 import types
@@ -31,6 +40,7 @@ import torch
 from repro_torch.configs import MoEConfig
 from repro_torch.core import moe_apply, moe_init
 from repro_torch.core import sparse_moe
+from repro_torch.kernels import invariant_matmul as im
 from repro_torch.kernels.invariant_matmul import (
     batched_contract,
     batched_contract_ref,
@@ -222,9 +232,111 @@ def test_malformed_operands_raise(call, exc):
     assert (router_logits.launches, batched_contract.launches) == before
 
 
+PLAN_COUNTS = (1, 7, 8, 9, 64, 255, 256, 2048, 16384)
+ORDER_FIELDS = ("k_step", "k_tile", "k_chunk", "n_chunks", "merge")
+
+
+def _layouts(P, K, Q):
+    """(a strides, b strides) of the main path's layouts for one matrix
+    of an (n, P, K) x (n, K, Q) product: the router weight and the
+    latent values (b q-unit-stride), the transposed key view (b
+    k-unit-stride), ``w_uv``'s strided views (a (H, B S, r) and b (H, r,
+    Dv) out of (B S, H, r) and (r, H, Dv) with H = 16)."""
+    return {"q-fast": ((P * K, K, 1), (K * Q, Q, 1)),
+            "k-fast": ((P * K, K, 1), (K * Q, 1, K)),
+            "w_uv": ((K, 16 * K, 1), (Q, 16 * Q, 1))}
+
+
+@pytest.mark.parametrize("K", [0, 1, 40, 255, 256, 257, 512, 576, 1024,
+                               2048, 2049, 4096])
+def test_plan_k_order_depends_on_k_alone(K):
+    orders, splits = set(), set()
+    for Q in (5, 32, 64, 512, 2048):
+        for count in PLAN_COUNTS:
+            for n, P in ((1, count), (count, 16)):  # rows, or matrices
+                for name, (sa, sb) in _layouts(P, K, Q).items():
+                    plan = im._plan(n, P, K, Q, sa, sb)
+                    orders.add(tuple(getattr(plan, f) for f in ORDER_FIELDS))
+                    splits.add(plan.n_split)
+                    # b's unit q stride decides (a k-fast view of one
+                    # k is also q-fast)
+                    assert plan.b_k_fast == (Q > 1 and sb[2] != 1)
+                    assert plan.n_split in (1, plan.n_chunks)
+                    assert plan.n_split <= im.MAX_SPLIT
+                    assert plan.tile == (
+                        0 if P <= 256 else 1 if P >= 4096 and Q >= 128
+                        else 2)
+                    bm, bn = im.TILES[plan.tile]
+                    assert plan.grid == (-(-Q // bn) * plan.n_split,
+                                         -(-P // bm), n)
+    assert orders == {(8, 32, 256, max(1, -(-K // 256)),
+                       "chunk order from 0")}
+    # a K of several chunks (at most a cluster's) splits on small grids
+    # and not on large ones; any other K never does
+    assert splits == ({1, -(-K // 256)} if 256 < K <= 2048 else {1})
+
+
+def test_plan_copy_width_follows_alignment():
+    sa, sb = (40 * 7, 40, 1), (40 * 5, 5, 1)  # d 40, e 5
+    plan = im._plan(1, 7, 40, 5, sa, sb)
+    assert (plan.vec_a, plan.vec_b) == (True, False)  # e = 5: 4-byte B
+    plan = im._plan(1, 7, 40, 8, sa, (320, 8, 1), False)
+    assert (plan.vec_a, plan.vec_b) == (False, True)  # a misaligned base
+    plan = im._plan(2, 7, 42, 8, (7 * 42, 42, 1), (42 * 8, 8, 1))
+    assert (plan.vec_a, plan.vec_b) == (False, True)  # K % 4 != 0
+    plan = im._plan(3, 16, 576, 2048, (16 * 576, 576, 1),
+                    (576 * 2048, 1, 576))
+    assert plan.b_k_fast and plan.vec_a and plan.vec_b
+
+
+def test_split_merge_is_the_running_total_bitwise():
+    """A split cluster adds its chunks' sums (each 0 + its chunk) in
+    chunk order from 0; one CTA adds the chunk sums into its total from
+    0: the same bits, signed zeros and infinities included."""
+    rng = np.random.RandomState(5)
+    vals = np.concatenate([rng.randn(4000) * 10.0 ** rng.randint(
+        -30, 30, 4000), [0.0, -0.0, np.inf, -np.inf, 1e38, -1e38]])
+    chunks = rng.choice(vals, size=(20000, 8)).astype(np.float32)
+    zero = np.float32(0)
+    with np.errstate(invalid="ignore", over="ignore"):
+        total = np.zeros(len(chunks), np.float32)
+        merged = np.zeros(len(chunks), np.float32)
+        for c in range(chunks.shape[1]):
+            total = total + chunks[:, c]
+            merged = merged + (zero + chunks[:, c])
+    same = (total.view(np.uint32) == merged.view(np.uint32)) | (
+        np.isnan(total) & np.isnan(merged))
+    assert same.all()
+
+
+def test_unit_strided_copies_only_operands_without_a_unit_stride():
+    a = torch.randn(2, 5, 8)
+    b = torch.randn(2, 8, 3)
+    kt = torch.randn(2, 3, 8).transpose(1, 2)  # the key view: k-fast
+    for x, y in ((a, b), (a, kt), (a[:, :, :1], b[:, :1])):
+        xa, yb = im._unit_strided(x, y)
+        assert xa is x and yb is y
+    at = a.transpose(1, 2).contiguous().transpose(1, 2)
+    bs = torch.randn(2, 16, 6)[:, ::2, ::2]  # no unit stride
+    xa, yb = im._unit_strided(at, bs)
+    assert at.stride(2) != 1 and xa.stride(2) == 1 and yb.is_contiguous()
+    assert torch.equal(xa, a) and torch.equal(yb, bs)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
+
+
+def _every_row_bitwise(fn, counts, label):
+    """``fn(0, m)`` (the launch of rows, or matrices, [0, m)) for every
+    m in ``counts`` against ``fn(i, i + 1)``, every row bitwise."""
+    solo = torch.cat([fn(i, i + 1) for i in range(max(counts))])
+    for m in counts:
+        out = fn(0, m)
+        torch.cuda.synchronize()
+        assert torch.equal(out, solo[:m]), (label, m)
+    return solo
 
 
 @pytest.mark.cuda
@@ -232,36 +344,106 @@ def test_malformed_operands_raise(call, exc):
 def test_cuda_router_logits_rows_invariant_and_close(cuda, d, e):
     gen = torch.Generator(device=cuda).manual_seed(d)
     w = torch.randn(d, e, generator=gen, device=cuda) / d ** 0.5
-    x = torch.randn(300, 1, d, generator=gen, device=cuda)
-    one = router_logits(x[:1], w)
-    for m in (1, 4, 8, 37, 300):
+    # tile 0 (16 rows) up to 256 rows, then tile 2 (64 rows), whose grid
+    # splits into chunks (d > 256) up to 131 tiles (8384 rows), not at 132
+    counts = (1, 7, 8, 9, 16, 17, 255, 256, 257, 300, 2048, 8384, 8385,
+              16384, 16769)
+    x = torch.randn(max(counts), 1, d, generator=gen, device=cuda)
+    for m in (1, 4, 8, 37, 300, 16769):
         before = router_logits.launches
         out = router_logits(x[:m], w)
         torch.cuda.synchronize()
         assert router_logits.launches == before + 1
-        want = router_logits_ref(x[:m], w)
-        err = (out - want).abs().max().item()
+        # cuBLAS's own f32 error at 16769 rows exceeds 1e-6 of max|ref|
+        # (a 1024-long chain): hold that count against the f64 product
+        want = (router_logits_ref(x[:m], w) if m <= 300 else
+                router_logits_ref(x[:m].double(), w.double()))
+        err = (out.double() - want).abs().max().item()
         assert err <= PLAIN_TOL * want.abs().max().item(), (m, err)
-        assert torch.equal(out[:1], one), m
-        assert torch.equal(out[m - 1:m], router_logits(x[m - 1:m], w)), m
+    solo = _every_row_bitwise(lambda lo, hi: router_logits(x[lo:hi], w),
+                              counts, f"router d {d} e {e}")
+    # a misaligned base (4-byte copies) gives the same bits
+    xm = torch.randn(300, 1, d + 1, generator=gen, device=cuda)
+    xm[..., 1:] = x[:300]
+    assert im._plan(1, 300, d, e, (0, d + 1, 1), (0, e, 1),
+                    xm[..., 1:].data_ptr() % 16 == 0).vec_a is False
+    assert torch.equal(router_logits(xm[..., 1:], w), solo[:300])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [64, 2048])
 def test_cuda_batched_contract_matrices_invariant_and_close(cuda, t):
     gen = torch.Generator(device=cuda).manual_seed(t)
-    q = torch.randn(8, 16, 576, generator=gen, device=cuda)
-    k = torch.randn(8, t, 576, generator=gen, device=cuda)
-    p = torch.softmax(torch.randn(8, 16, t, generator=gen, device=cuda), -1)
-    for a, b in ((q, k.transpose(1, 2)), (p, k[..., :512])):
+    # scores: 32 key tiles a matrix at 2048 keys, so 4 matrices split
+    # into chunks and 5 do not; values: 8 latent tiles, 16 and 17
+    counts = (1, 4, 5, 8, 16, 17, 33)
+    n = max(counts)
+    q = torch.randn(n, 16, 576, generator=gen, device=cuda)
+    k = torch.randn(n, t, 576, generator=gen, device=cuda)
+    p = torch.softmax(torch.randn(n, 16, t, generator=gen, device=cuda), -1)
+    for kind, (a, b) in (("scores", (q, k.transpose(1, 2))),
+                         ("values", (p, k[..., :512]))):
+        # against the f64 product: on these f32 (not bf16-valued) scores
+        # cuBLAS's own f32 error is ~1e-6 of max|ref| at 8 matrices of
+        # 2048 keys (PERF.md §6), so the plain einsum cannot judge
+        # the kernel there
         one = batched_contract(a[:1], b[:1])
-        for n in (1, 4, 8):
-            out = batched_contract(a[:n], b[:n])
+        for m in (1, 4, 8, n):
+            out = batched_contract(a[:m], b[:m])
             torch.cuda.synchronize()
-            want = batched_contract_ref(a[:n], b[:n])
-            err = (out - want).abs().max().item()
-            assert err <= PLAIN_TOL * want.abs().max().item(), (n, err)
-            assert torch.equal(out[:1], one), n
+            want = batched_contract_ref(a[:m].double(), b[:m].double())
+            err = (out.double() - want).abs().max().item()
+            assert err <= PLAIN_TOL * want.abs().max().item(), (kind, m, err)
+            assert torch.equal(out[:1], one), (kind, m)
+        _every_row_bitwise(
+            lambda lo, hi: batched_contract(a[lo:hi], b[lo:hi]), counts,
+            f"{kind} matrices")
+    # the layout moves no sum: the k-fast key view and its q-fast copy
+    kt = k.transpose(1, 2)
+    assert torch.equal(batched_contract(q, kt),
+                       batched_contract(q, kt.contiguous()))
+
+
+@pytest.mark.cuda
+def test_cuda_batched_contract_prefill_rows_invariant(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    keys = torch.randn(1, 2048, 576, generator=gen, device=cuda)
+    rows = torch.randn(4096, 1, 576, generator=gen, device=cuda)
+    w = torch.softmax(torch.randn(4096, 1, 2048, generator=gen,
+                                  device=cuda), -1)
+    # tile 0 up to 256 rows (split while under 132 tiles), tile 2 from
+    # 257, tile 1 from 4096
+    counts = (1, 16, 17, 128, 129, 256, 257, 4095, 4096)
+    for kind, a, b in (("scores", rows, keys.transpose(1, 2)),
+                       ("values", w, keys[..., :512])):
+        a = a.transpose(0, 1)  # (1, rows, k)
+        # against f64, as phase 6b holds prefill: at 4096 rows cuBLAS's
+        # own f32 error exceeds 1e-6 of max|ref|
+        out = batched_contract(a, b).double()
+        want = batched_contract_ref(a.double(), b.double())
+        err = (out - want).abs().max().item()
+        assert err <= PLAIN_TOL * want.abs().max().item(), (kind, err)
+        _every_row_bitwise(lambda lo, hi: batched_contract(a[:, lo:hi], b)[0],
+                           counts, f"prefill {kind}")
+
+
+@pytest.mark.cuda
+def test_cuda_w_uv_strided_views_rows_invariant(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    h, r, dv = 16, 512, 128
+    w_uv = torch.randn(r, h, dv, generator=gen, device=cuda)
+    lat = torch.randn(300, h, r, generator=gen, device=cuda)
+
+    def up(lo, hi):  # _latent_up's views: (H, rows, r) x (H, r, Dv)
+        a, b = lat[lo:hi].transpose(0, 1), w_uv.permute(1, 0, 2)
+        assert a.stride() == (r, h * r, 1) and b.stride() == (dv, h * dv, 1)
+        return batched_contract(a, b).transpose(0, 1)
+
+    out = up(0, len(lat))
+    want = torch.einsum("shr,rhv->shv", lat, w_uv)
+    err = (out - want).abs().max().item()
+    assert err <= PLAIN_TOL * want.abs().max().item(), err
+    _every_row_bitwise(up, (1, 8, 16, 17, 129, 300), "w_uv")
 
 
 @pytest.mark.cuda
