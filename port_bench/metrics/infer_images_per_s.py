@@ -1,0 +1,7 @@
+"""Images classified per second: every batch of the window over its
+length."""
+
+
+def read(ctx):
+    w = ctx["window"]
+    return w["steps"] * ctx["traffic"]["batch"] / w["seconds"]
