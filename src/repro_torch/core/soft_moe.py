@@ -21,6 +21,7 @@ import torch
 
 from ..layers.common import l2_normalize, lecun_init
 from ..layers.mlp import expert_init, experts_apply
+from ..tracing import span
 
 
 def soft_moe_init(gen: torch.Generator, d_model: int, moe_cfg,
@@ -64,7 +65,11 @@ def soft_moe_apply(params, moe_cfg, x, act: str = "silu",
     (see the JAX function). It never changes ``y``: the kernel path reads
     the routing pass's saved softmax stats through K6
     (``kernels/ops.py::routing_health``); the einsum path reduces the
-    weights it already holds (``_dense_routing_health``)."""
+    weights it already holds (``_dense_routing_health``).
+
+    Spans (``repro_torch.tracing``): the experts are ``soft_moe/experts``,
+    the telemetry ``soft_moe/telemetry`` (with its device interval on
+    CUDA under a profile), each kernel call ``soft_moe/<wrapper>``."""
     b, m, d = x.shape
     n, p = moe_cfg.num_experts, moe_cfg.slots_per_expert
     phi = params["phi"]
@@ -92,7 +97,8 @@ def soft_moe_apply(params, moe_cfg, x, act: str = "silu",
 
     # expert compute: (b, n, p, d) -> (n, b p, d), expert axis leading
     ys = slots.permute(1, 0, 2, 3).reshape(n, b * p, d)
-    ys = experts_apply(params["experts"], ys, act)
+    with span("soft_moe/experts"):
+        ys = experts_apply(params["experts"], ys, act)
     ys = ys.reshape(n, b, p, d).permute(1, 0, 2, 3)  # (b, n, p, d)
 
     if use_kernel:
@@ -120,32 +126,33 @@ def soft_moe_apply(params, moe_cfg, x, act: str = "silu",
     else:
         metrics["max_combine"] = (1.0 / c_stats[1]).max().detach()
     if telemetry:
-        if use_kernel:
-            dent, imp, cent, contrib = kops.routing_health(
-                x, phi_n, d_stats, c_stats, config=kcfg)
-            max_dispatch = (1.0 / d_stats[1]).max()
-        else:
-            dent, imp, cent, contrib = _dense_routing_health(
-                d_w.detach(), c_weights.detach())
-            max_dispatch = d_w.detach().max()
-        imp_e = imp.reshape(b, n, p).sum(dim=(0, 2))  # per-expert mass
-        metrics["telemetry"] = {
-            "max_combine": metrics["max_combine"],
-            "max_dispatch": max_dispatch.float(),
-            "dispatch_entropy": dent.mean().float(),
-            "combine_entropy": cent.mean().float(),
-            "expert_importance_spread": (
-                imp_e.max() / torch.clamp(imp_e.min(), min=1e-9)).float(),
-            "token_contribution_min": contrib.min().float(),
-            "token_contribution_max": contrib.max().float(),
-            # per-sequence rows (b,): Soft MoE's softmaxes are per row, so
-            # these do not move with the batch's composition
-            "rows": {
-                "dispatch_entropy": dent.mean(dim=1).float(),
-                "combine_entropy": cent.mean(dim=1).float(),
-                "token_contribution_min": contrib.amin(dim=1).float(),
-            },
-        }
+        with span("soft_moe/telemetry", device=x.is_cuda):
+            if use_kernel:
+                dent, imp, cent, contrib = kops.routing_health(
+                    x, phi_n, d_stats, c_stats, config=kcfg)
+                max_dispatch = (1.0 / d_stats[1]).max()
+            else:
+                dent, imp, cent, contrib = _dense_routing_health(
+                    d_w.detach(), c_weights.detach())
+                max_dispatch = d_w.detach().max()
+            imp_e = imp.reshape(b, n, p).sum(dim=(0, 2))  # per-expert mass
+            metrics["telemetry"] = {
+                "max_combine": metrics["max_combine"],
+                "max_dispatch": max_dispatch.float(),
+                "dispatch_entropy": dent.mean().float(),
+                "combine_entropy": cent.mean().float(),
+                "expert_importance_spread": (
+                    imp_e.max() / torch.clamp(imp_e.min(), min=1e-9)).float(),
+                "token_contribution_min": contrib.min().float(),
+                "token_contribution_max": contrib.max().float(),
+                # per-sequence rows (b,): Soft MoE's softmaxes are per row, so
+                # these do not move with the batch's composition
+                "rows": {
+                    "dispatch_entropy": dent.mean(dim=1).float(),
+                    "combine_entropy": cent.mean(dim=1).float(),
+                    "token_contribution_min": contrib.amin(dim=1).float(),
+                },
+            }
     return y, metrics
 
 

@@ -29,10 +29,12 @@ first use and called through ctypes; each source's header says what
 bounds it and how it is laid out. Each wrapper runs its plain version
 (``*_ref``) for CPU tensors and, for CUDA tensors, launches its kernel
 or raises: there is no fallback. ``<wrapper>.launches`` counts kernel
-launches (never plain runs). A raw kernel has no backward of its own: a
-CUDA wrapper refuses inputs that would need a gradient, and the
-differentiable entry points are the ``torch.autograd.Function``s of
-``kernels/ops.py``, whose backward calls K4 and K5.
+launches (never plain runs); each call, plain or not, is the span
+``soft_moe/<wrapper>`` (``repro_torch.tracing``). A raw kernel has no
+backward of its own: a CUDA wrapper refuses inputs that would need a
+gradient, and the differentiable entry points are the
+``torch.autograd.Function``s of ``kernels/ops.py``, whose backward calls
+K4 and K5.
 
 The plain versions repeat the kernels' tile recurrences in PyTorch, with
 ``block_tokens`` / ``block_slots`` from the ``KernelConfig``, so the CPU
@@ -57,6 +59,7 @@ from typing import Optional
 
 import torch
 
+from ..tracing import span
 from .recording import kernel_op
 from .tuning import (
     BWD_TILES,
@@ -527,6 +530,7 @@ def _stream(dev):
 
 
 @kernel_op("routing_fwd")
+@span("soft_moe/routing_fwd")
 def routing_fwd(x, phi_n, cfg: Optional[KernelConfig] = None):
     """K1: x (b, m, d) f32 or bf16; phi_n (d, S) f32 pre-normalized.
 
@@ -600,6 +604,7 @@ def _combine_cuda(x, phi_n, ys, c_stats, cfg):
 
 
 @kernel_op("combine_apply")
+@span("soft_moe/combine_apply")
 def combine_apply(x, phi_n, ys, c_stats, cfg: Optional[KernelConfig] = None):
     """K2: y = C Ys (b, m, d) in x's dtype, with C from K1's per-token
     ``c_stats = (c_mx, c_den)``, each (b, m) f32. CPU tensors run
@@ -622,6 +627,7 @@ combine_apply.launches = 0
 
 
 @kernel_op("combine_online")
+@span("soft_moe/combine_online")
 def combine_online(x, phi_n, ys, cfg: Optional[KernelConfig] = None):
     """K3: ``(y (b, m, d), (c_mx, c_den) (b, m))`` with an online softmax
     over 128-slot tiles. CPU tensors run ``combine_online_ref``; CUDA
@@ -678,6 +684,7 @@ def _dispatch_bwd_cuda(x, phi_n, g_slots, d_stats, slots, cfg):
 
 
 @kernel_op("dispatch_bwd")
+@span("soft_moe/dispatch_bwd")
 def dispatch_bwd(x, phi_n, g_slots, d_stats, slots,
                  cfg: Optional[KernelConfig] = None):
     """K4: ``(dx (b, m, d) in x's dtype, dphi_n (d, S) f32)``, the
@@ -728,6 +735,7 @@ def _combine_bwd_cuda(x, phi_n, ys, g, c_stats, y, cfg):
 
 
 @kernel_op("combine_bwd")
+@span("soft_moe/combine_bwd")
 def combine_bwd(x, phi_n, ys, g, c_stats, y,
                 cfg: Optional[KernelConfig] = None):
     """K5: ``(dx (b, m, d) in x's dtype, dphi_n (d, S) f32, dys (b, S, d)
@@ -754,6 +762,7 @@ combine_bwd.launches = 0
 
 
 @kernel_op("routing_health")
+@span("soft_moe/routing_health")
 def routing_health(x, phi_n, d_stats, c_stats,
                    cfg: Optional[KernelConfig] = None):
     """K6: ``(disp_entropy (b, S), importance (b, S), comb_entropy (b, m),

@@ -40,6 +40,7 @@ from ..layers.common import dtype_of, lecun_init, norm_apply, norm_init
 from ..layers.embedding import embed, embedding_init, unembed
 from ..layers.mlp import mlp_apply, mlp_init
 from ..layers.ssm import init_ssm_cache, ssm_apply, ssm_init
+from ..tracing import span
 
 
 def segment_plan(cfg, n_layers: Optional[int] = None
@@ -199,15 +200,19 @@ def _train_block(p, cfg, x, is_moe, is_global, positions, use_kernel,
 
 def _logit_probes(logits):
     """Per-row (B,) numerics of the logits, one row at a time (a row's
-    softmax over the vocabulary is the largest temporary)."""
-    out = {"max_abs_logit": [], "softmax_entropy": [], "nonfinite_count": []}
-    for lf in logits.detach().float():
-        lse = torch.logsumexp(lf, dim=-1)
-        ent = lse - (torch.softmax(lf, dim=-1) * lf).sum(-1)
-        out["max_abs_logit"].append(lf.abs().max())
-        out["softmax_entropy"].append(ent.mean())
-        out["nonfinite_count"].append((~torch.isfinite(lf)).sum().float())
-    return {k: torch.stack(v) for k, v in out.items()}
+    softmax over the vocabulary is the largest temporary); the span
+    ``lm/logit_probes``, with its device interval on CUDA under a
+    profile."""
+    with span("lm/logit_probes", device=logits.is_cuda):
+        out = {"max_abs_logit": [], "softmax_entropy": [],
+               "nonfinite_count": []}
+        for lf in logits.detach().float():
+            lse = torch.logsumexp(lf, dim=-1)
+            ent = lse - (torch.softmax(lf, dim=-1) * lf).sum(-1)
+            out["max_abs_logit"].append(lf.abs().max())
+            out["softmax_entropy"].append(ent.mean())
+            out["nonfinite_count"].append((~torch.isfinite(lf)).sum().float())
+        return {k: torch.stack(v) for k, v in out.items()}
 
 
 def lm_init(gen: torch.Generator, cfg):

@@ -28,6 +28,7 @@ from ..layers.common import (
     norm_init,
     truncated_normal,
 )
+from ..tracing import span
 from .lm import block_apply, block_init
 
 
@@ -74,9 +75,12 @@ def _encode(params, cfg, patches, use_kernel: bool, remat: bool):
     return norm_apply(params["final_norm"], cfg, x), aux
 
 
+@span("vit/apply", root=True)
 def vit_apply(params, cfg, patches, use_kernel: bool = False):
     """patches: (B, num_patches, patch_dim) -> ((B, num_classes) f32
-    logits, aux loss)."""
+    logits, aux loss). A root span, ``vit/apply``: a call outside a
+    train step leaves a step record of its own (``repro_torch.tracing``).
+    """
     x, aux = _encode(params, cfg, patches, use_kernel, cfg.remat)
     pooled = x.mean(dim=1).float()
     logits = pooled @ params["head"]["w"].float() + params["head"]["b"]

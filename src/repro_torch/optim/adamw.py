@@ -24,6 +24,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from ..tracing import span
+
 
 @dataclass(frozen=True)
 class OptimizerConfig:
@@ -121,22 +123,31 @@ def adamw_update(grads, opt_state, params, cfg: OptimizerConfig, lr=None):
     """One AdamW step, in place: ``params`` and the moments are updated
     leaf by leaf (``grads`` are clipped in place first). Returns
     ``(params, {"mu", "nu", "step"}, {"grad_norm", "lr"})`` with the
-    step advanced, as the JAX function returns its new trees."""
-    step = opt_state["step"] + 1
-    lr = schedule_lr(cfg, _local(step)) if lr is None else lr
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip_norm)
-    b1, b2 = cfg.b1, cfg.b2
-    s = _local(step).float()
-    bc1 = 1 - torch.pow(b1, s)
-    bc2 = 1 - torch.pow(b2, s)
-    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(opt_state["mu"]),
-                          tree_leaves(opt_state["nu"]), tree_leaves(params)):
-        g, m, v, p = _local(g).float(), _local(m), _local(v), _local(p)
-        m.mul_(b1).add_(g * (1 - b1))          # b1 m + (1 - b1) g
-        v.mul_(b2).add_((g * g).mul_(1 - b2))  # b2 v + (1 - b2) g^2
-        delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        delta.add_(p * cfg.weight_decay)       # mhat / (sqrt(vhat) + eps) + wd p
-        p.sub_(delta.mul_(lr))
+    step advanced, as the JAX function returns its new trees.
+
+    The call is the span ``optim/adamw`` (with its device interval on
+    CUDA under a profile), the clip ``optim/clip`` and the leaf loop
+    ``optim/update``."""
+    with span("optim/adamw", device=_local(opt_state["step"]).is_cuda):
+        step = opt_state["step"] + 1
+        lr = schedule_lr(cfg, _local(step)) if lr is None else lr
+        with span("optim/clip"):
+            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip_norm)
+        b1, b2 = cfg.b1, cfg.b2
+        s = _local(step).float()
+        bc1 = 1 - torch.pow(b1, s)
+        bc2 = 1 - torch.pow(b2, s)
+        leaves = zip(tree_leaves(grads), tree_leaves(opt_state["mu"]),
+                     tree_leaves(opt_state["nu"]), tree_leaves(params))
+        with span("optim/update"):
+            for g, m, v, p in leaves:
+                g, m, v, p = _local(g).float(), _local(m), _local(v), _local(p)
+                m.mul_(b1).add_(g * (1 - b1))          # b1 m + (1 - b1) g
+                v.mul_(b2).add_((g * g).mul_(1 - b2))  # b2 v + (1 - b2) g^2
+                # mhat / (sqrt(vhat) + eps) + wd p
+                delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
+                delta.add_(p * cfg.weight_decay)
+                p.sub_(delta.mul_(lr))
     new_state = {"mu": opt_state["mu"], "nu": opt_state["nu"], "step": step}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
 

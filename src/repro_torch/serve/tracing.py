@@ -20,20 +20,22 @@ Three surfaces:
   exactly one submitted/retired pair, the retired reason equal to
   ``finish_reason``, shed requests never admitted, and committed-token
   spans after the last requeue summing to ``len(req.out)``.
-* ``FlightRecorder``: a bounded ring of per-tick engine records (queue
-  and batch occupancy, blocks free and live, tokens emitted, per-program
-  host wall time). ``dump(reason, path)`` freezes the ring for a
-  post-mortem; the server's watchdog and pump-crash paths call it.
-* ``ProgramTimer``: a transparent wrapper around one program that
-  accumulates host-side call counts and wall time; other attributes
-  pass through to the wrapped callable.
+* ``FlightRecorder`` (from ``repro_torch/tracing.py``, re-exported): a
+  bounded ring of per-tick engine records (queue and batch occupancy,
+  blocks free and live, tokens emitted, per-program host wall time).
+  ``dump(reason, path)`` freezes the ring for a post-mortem; the
+  server's watchdog and pump-crash paths call it.
+* ``ProgramTimer`` (from ``repro_torch/tracing.py``, re-exported): a
+  transparent wrapper around one program that accumulates host-side
+  call counts and wall time, each call a span of its name; other
+  attributes pass through to the wrapped callable.
 """
 from __future__ import annotations
 
-import json
 import time
-from collections import deque
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Sequence
+
+from ..tracing import FlightRecorder, ProgramTimer  # noqa: F401
 
 # -- span kinds --------------------------------------------------------------
 
@@ -217,121 +219,3 @@ def render_timeline(reqs: Sequence, width: int = 64) -> str:
             f"{len(r.out):>3} tok"
         )
     return "\n".join(lines)
-
-
-# -- flight recorder ---------------------------------------------------------
-
-
-class FlightRecorder:
-    """Bounded ring of per-tick engine records for post-mortems.
-
-    The engine appends one dict per tick (``ServeEngine.step`` has the
-    schema, the reference's key set); ``dump`` freezes the
-    current ring with a reason tag, optionally writing JSON to a path.
-    ``ticks`` counts every record ever seen (the ring holds the last
-    ``capacity``)."""
-
-    def __init__(self, capacity: int = 256):
-        assert capacity >= 1
-        self.capacity = capacity
-        self._ring: deque = deque(maxlen=capacity)
-        self.ticks = 0
-        self.dumps = 0
-        self.last_dump: Optional[dict] = None
-        self.last_dump_path: Optional[str] = None
-
-    def record(self, rec: dict):
-        self.ticks += 1
-        self._ring.append(rec)
-
-    def records(self) -> List[dict]:
-        return list(self._ring)
-
-    def dump(self, reason: str, path: Optional[str] = None) -> dict:
-        out = {
-            "reason": reason,
-            "ticks_seen": self.ticks,
-            "capacity": self.capacity,
-            "records": self.records(),
-        }
-        self.dumps += 1
-        self.last_dump = out
-        if path is not None:
-            with open(path, "w") as f:
-                json.dump(out, f, indent=1, default=str)
-            self.last_dump_path = path
-        return out
-
-    def render(self, last: int = 12, records=None) -> str:
-        """Compact text table of the most recent records — of the live
-        ring, or of an explicit record list (e.g. a frozen
-        ``dump["records"]``)."""
-        recs = (self.records() if records is None else list(records))[-last:]
-        if not recs:
-            return "(flight recorder empty)"
-        lines = ["tick  live queued emit adm  programs"]
-        for r in recs:
-            progs = ",".join(
-                f"{k}:{v['calls']}" for k, v in
-                sorted(r.get("programs", {}).items()) if v["calls"]
-            ) or "-"
-            lines.append(
-                f"{r.get('tick', 0):>5} {r.get('live', 0):>4}"
-                f" {r.get('queued', 0):>6} {r.get('emitted', 0):>4}"
-                f" {r.get('admitted', 0):>3}  {progs}"
-            )
-        return "\n".join(lines)
-
-
-# -- per-program host timing -------------------------------------------------
-
-
-class ProgramTimer:
-    """Wrap one program with host-side wall-time accounting.
-
-    ``calls``/``total_s`` accumulate for the wrapper's lifetime;
-    ``take_tick()`` drains the per-tick delta the flight recorder
-    stores. Unknown attributes pass through to the wrapped callable.
-
-    On CUDA the time is the host's: the program's launches plus any wait
-    inside it, not its device time. No ``torch.cuda.synchronize()`` is
-    added, since that would change the serving timing being reported;
-    the sampler's copy of its tokens to the host already waits for the
-    device once a tick, so the sampler's time carries that wait."""
-
-    def __init__(self, name: str, fn):
-        self.name = name
-        self.fn = fn
-        self.calls = 0
-        self.total_s = 0.0
-        self._tick_calls = 0
-        self._tick_s = 0.0
-
-    def __call__(self, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = self.fn(*args, **kwargs)
-        dt = time.perf_counter() - t0
-        self.calls += 1
-        self.total_s += dt
-        self._tick_calls += 1
-        self._tick_s += dt
-        return out
-
-    def take_tick(self) -> dict:
-        out = {"calls": self._tick_calls, "s": round(self._tick_s, 6)}
-        self._tick_calls = 0
-        self._tick_s = 0.0
-        return out
-
-    def reset(self):
-        """Zero the lifetime accumulators (after a warm-up request, so
-        ``program_efficiency()`` attributes only steady-state calls)."""
-        self.calls = 0
-        self.total_s = 0.0
-        self._tick_calls = 0
-        self._tick_s = 0.0
-
-    def __getattr__(self, name):
-        if name == "fn":  # not yet set (mid-__init__): avoid recursion
-            raise AttributeError(name)
-        return getattr(self.fn, name)

@@ -49,6 +49,7 @@ from ..optim import (
     tree_leaves,
     tree_map,
 )
+from ..tracing import span
 
 
 def init_train_state(gen, init_fn, zero1: bool = False):
@@ -75,12 +76,13 @@ def _grads_of(loss_fn, params, batch):
     tensors in the params' structure."""
     wrt = tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()),
                    params)
-    with torch.enable_grad():
+    leaves = tree_leaves(wrt)
+    with span("train/forward"), torch.enable_grad():
         loss, metrics = loss_fn(wrt, batch)
-        leaves = tree_leaves(wrt)
+    with span("train/backward"):
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p, dtype=torch.float32) if g is None
-             else g.float() for p, g in zip(leaves, grads)]
+        grads = [torch.zeros_like(p, dtype=torch.float32) if g is None
+                 else g.float() for p, g in zip(leaves, grads)]
     it = iter(grads)
     return (loss.detach(), tree_map(lambda v: v.detach(), metrics),
             tree_map(lambda _: next(it), params))
@@ -156,7 +158,11 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
     divided by the count, one microbatch's activations live at a time.
     A ZeRO-1 state (``"master"`` present) updates the f32 master and casts
     it back into the compute params. Under a mesh the batch is the global
-    one, the same on every rank; each rank runs its shard of it."""
+    one, the same on every rank; each rank runs its shard of it.
+
+    Each call is a root span, ``train/step``: it leaves one step record
+    (``repro_torch.tracing``) with the spans of its forward, backward,
+    AdamW and the model's layers."""
 
     def accumulate(params, batch):
         def part(x, i):
@@ -178,6 +184,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
             acc.div_(microbatches)
         return loss_sum / microbatches, _aggregate(per_mb), grads
 
+    @span("train/step", root=True)
     def train_step(state, batch):
         mesh = current_mesh()
         params = state["params"]

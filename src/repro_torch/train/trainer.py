@@ -13,6 +13,16 @@
 A step's time runs to a host sync on its loss (``float``), the
 counterpart of ``jax.block_until_ready``. There is no ``jax.jit`` and no
 donation: the train step updates the state in place.
+
+Every ``log_every`` steps the logged metrics also carry the last step's
+spans (``repro_torch.tracing``): ``span_<name>_ms``, the host
+milliseconds of each span in the step record (``span_train/step_ms``,
+``span_optim/adamw_ms``, ``span_soft_moe/routing_fwd_ms``, ...), and
+``span_<name>_device_ms`` for the spans with a device interval, which
+they have on CUDA while a profile records (``optim/adamw``,
+``soft_moe/telemetry``, ``lm/logit_probes``). The sync on the loss has
+already waited for the step, so reading the intervals waits for
+nothing.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ from typing import Any, Callable, List, Optional
 from ..checkpoint.manager import CheckpointManager
 from ..optim import OptimizerConfig
 from ..serve.telemetry import flatten_telemetry
+from ..tracing import step_records
 from .step import init_train_state, make_train_step
 
 
@@ -37,6 +48,17 @@ class TrainerConfig:
     straggler_factor: float = 3.0
     straggler_abort: bool = False
     microbatches: int = 1
+
+
+def _span_metrics() -> dict:
+    """The last step record's host and device milliseconds by span."""
+    recs = step_records(1)
+    if not recs:
+        return {}
+    out = {f"span_{k}_ms": v for k, v in recs[0].host_ms().items()}
+    out.update({f"span_{k}_device_ms": v
+                for k, v in recs[0].device_ms().items()})
+    return out
 
 
 @dataclass
@@ -124,6 +146,7 @@ class Trainer:
                               for k, v in flatten_telemetry(telem).items()})
                 m["step"] = step
                 m["step_time"] = dt
+                m.update(_span_metrics())
                 self.metrics_history.append(m)
                 print(f"[trainer] step {step}: loss={loss:.4f}"
                       f" lr={m.get('lr', 0):.2e} dt={dt:.3f}s")
